@@ -32,8 +32,11 @@ _DTYPE_BYTES = {'f64': 8, 'f32': 4, 'bf16': 2, 'f16': 2,
 
 _SHAPE_RE = re.compile(r'(f64|f32|bf16|f16|s64|s32|u64|u32|s8|u8|pred)'
                        r'\[([0-9,]*)\]')
+# a GPU module splits each collective into an async -start/-done pair:
+# the -start op is counted
 _OP_RE = re.compile(r'= (\(?[^=]*?\)?) (all-reduce|all-gather|'
-                    r'reduce-scatter|collective-permute|all-to-all)\(')
+                    r'reduce-scatter|collective-permute|all-to-all)'
+                    r'(?:-start)?\(')
 
 
 def _shape_bytes(shape_text):

@@ -13,7 +13,7 @@ make_ld_schema.py). Byte-level output parity with the reference is
 pinned separately by tests/test_cli.py's goldens; this records speed.
 
 Run: python bench_ld_build.py [n_blocks [block_size [n_samples]]]
-CPU-only; safe while the TPU is busy.
+CPU-only.
 """
 import os
 import sys

@@ -12,7 +12,7 @@ fast as numba-compiled loops on the same hardware). Real numba vilma
 lies between the two anchors.
 
 Usage: python bench_reference.py [sizes...]   (defaults: 1024 4096)
-CPU-only; safe to run while the TPU is busy.
+CPU-only.
 """
 import sys
 import time

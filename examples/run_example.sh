@@ -22,9 +22,9 @@ python -m vilma_tpu.frontend make_ld_schema --logfile - \
     --ldthresh 0.8
 
 # 2. Fit the model (K=81 mixture components, learned SE scaling).
-# --precision f64 pins the CPU parity path: this example exists to
+# --precision f64 pins the parity path: this example exists to
 # demonstrate 1e-6-level agreement with the reference golden, which the
-# f32 accelerator fast path (the default on TPU VMs) does not target.
+# f32 fast path (the default on a GPU) does not target.
 python -m vilma_tpu.frontend fit --logfile - \
     --precision f64 \
     --sumstats "$DATA_DIR/example_data/example_gwas_sumstats.txt" \

@@ -5,15 +5,14 @@ from vilma_tpu import VERSION
 setup(
     name='vilma_tpu',
     version=VERSION,
-    description='TPU-native variational inference of variant effect sizes '
+    description='JAX variational inference of variant effect sizes '
                 'and effect-size distributions from GWAS summary data',
     packages=find_packages(exclude=('tests',)),
     python_requires='>=3.10',
     install_requires=[
         'jax',
         'numpy',
-        'pandas>=1.2.1',
-        'h5py>=3.6.0',
+        'ml_dtypes',
     ],
     extras_require={
         # gradient-/MCMC-based posterior validation tooling

@@ -1,9 +1,14 @@
-"""--precision auto resolution (round-2 review: a default `fit` on an
-accelerator VM must not silently run the f64 CPU path)."""
+"""--precision auto resolution and what each precision configures.
+
+auto follows the backend JAX runs on, decided in-process: f32 on a GPU,
+f64 elsewhere. f64 runs on whatever backend that is (the GPU computes
+float64 natively); f32 keeps JAX's matmul precision (a GPU may run f32
+products in TF32 unless JAX_DEFAULT_MATMUL_PRECISION says otherwise)."""
 import os
 import subprocess
 import sys
 
+import jax
 import numpy as np
 import pandas as pd
 import pytest
@@ -15,32 +20,65 @@ DATA = os.path.join(REF, 'tests', 'test_data')
 
 
 def test_auto_resolves_f32_with_accelerator(monkeypatch):
-    monkeypatch.setattr(fit_mod, '_accelerator_available', lambda: True)
+    monkeypatch.setattr(jax, 'default_backend', lambda: 'gpu')
     assert fit_mod._resolve_precision('auto') == 'f32'
 
 
 def test_auto_resolves_f64_without_accelerator(monkeypatch):
-    monkeypatch.setattr(fit_mod, '_accelerator_available', lambda: False)
+    monkeypatch.setattr(jax, 'default_backend', lambda: 'cpu')
     assert fit_mod._resolve_precision('auto') == 'f64'
 
 
 def test_explicit_choices_pass_through(monkeypatch):
-    # explicit --precision must never be second-guessed (nor pay a probe)
+    # explicit --precision is never second-guessed (nor touches the
+    # backend)
     def boom():
-        raise AssertionError('probe must not run for explicit choices')
-    monkeypatch.setattr(fit_mod, '_accelerator_available', boom)
+        raise AssertionError('backend must not be queried')
+    monkeypatch.setattr(jax, 'default_backend', boom)
     assert fit_mod._resolve_precision('f32') == 'f32'
     assert fit_mod._resolve_precision('f64') == 'f64'
 
 
 def test_probe_short_circuits_on_cpu_platforms(monkeypatch):
-    # JAX_PLATFORMS=cpu answers without spawning a probe subprocess
+    # auto asks the backend in this process: no probe subprocess
     monkeypatch.setenv('JAX_PLATFORMS', 'cpu')
 
     def boom(*a, **k):
         raise AssertionError('no subprocess expected')
     monkeypatch.setattr(subprocess, 'run', boom)
-    assert fit_mod._accelerator_available() is False
+    monkeypatch.setattr(subprocess, 'Popen', boom)
+    assert fit_mod._resolve_precision('auto') == 'f64'
+
+
+def test_configure_precision_keeps_the_backend():
+    """f64 enables x64 without pinning a platform; f32 leaves JAX's
+    default matmul precision alone."""
+    platforms = jax.config.jax_platforms
+    x64 = jax.config.jax_enable_x64
+    matmul = jax.config.jax_default_matmul_precision
+    try:
+        fit_mod._configure_precision('f64')
+        assert jax.config.jax_enable_x64
+        assert jax.config.jax_platforms == platforms
+        jax.config.update('jax_default_matmul_precision', None)
+        fit_mod._configure_precision('f32')
+        assert jax.config.jax_default_matmul_precision is None
+        assert jax.config.jax_platforms == platforms
+    finally:
+        jax.config.update('jax_enable_x64', x64)
+        jax.config.update('jax_default_matmul_precision', matmul)
+
+
+def test_configure_precision_keeps_a_set_matmul_precision():
+    """A matmul precision set before the fit (JAX_DEFAULT_MATMUL_PRECISION)
+    is kept by the f32 path."""
+    matmul = jax.config.jax_default_matmul_precision
+    try:
+        jax.config.update('jax_default_matmul_precision', 'highest')
+        fit_mod._configure_precision('f32')
+        assert jax.config.jax_default_matmul_precision == 'highest'
+    finally:
+        jax.config.update('jax_default_matmul_precision', matmul)
 
 
 @pytest.mark.skipif(not os.path.isdir(DATA),

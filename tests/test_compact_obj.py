@@ -1,11 +1,13 @@
-"""Fused compact-objective prologue (ops/pallas/compact_obj.py).
+"""The compact objective's XLA routes against brute force.
 
-The kernel re-derives, per SNP tile, what engine._objective_compact
-stages as XLA ops: the closed-form component moments, the stabilized
-categorical vi_delta, the posterior moments, and the beta-KL reductions
-(reference variational_inference.py:452-490,632-641,868-885). Interpret
-mode pins value-level parity on CPU; the Mosaic compile itself is
-covered by the TPU-gated selftest (tests/test_pallas_tpu.py).
+engine._objective_compact evaluates the mixture components ("the
+prologue": closed-form component moments, the stabilized categorical
+vi_delta, posterior moments, beta KL) either by staging whole [K, I]
+CompactExprs or, for grids past the chunking budget, K-chunk by K-chunk
+with the online-softmax identity (engine._chunked_moments). Both are
+pinned here against a float64 numpy reference that materializes every
+per-SNP, per-component covariance ([K, P, I]), and against each other,
+including under the shard-local mesh.
 """
 import dataclasses
 
@@ -15,193 +17,171 @@ import jax.numpy as jnp
 import pytest
 
 from vilma_tpu.inference import engine
-from vilma_tpu.ops import blocks, lowrank
+from vilma_tpu.ops import blocks, kernels, lowrank
 from vilma_tpu.parallel import alignment, mesh as mesh_mod
 from vilma_tpu.utils import synthetic
 
 
-def _objective_pair(data, st):
-    """(xla, pallas-interpret) evaluations of the same compact point."""
-    blocks.enable_pallas(False)
-    want = engine._objective_compact(data, st, st.nat_mu, st.hyper_delta)
-    try:
-        blocks.enable_pallas(True, interpret=True)
-        got = engine._objective_compact(data, st, st.nat_mu,
-                                        st.hyper_delta)
-    finally:
-        blocks.enable_pallas(False)
-    return want, got
+def _bruteforce(data, nat, hyper, error_scaling):
+    """(post_means, post_vars, vi_delta [K, I]) by explicit per-SNP PxP
+    inverses in float64 (reference variational_inference.py:452-490,
+    632-641, 712-733)."""
+    prec = np.asarray(data.mixture_prec, np.float64)           # [K, P, P]
+    log_det = np.asarray(data.log_det, np.float64)             # [K]
+    dterm = (np.asarray(data.scaled_ld_diags, np.float64)
+             / np.asarray(error_scaling, np.float64)[:, None])  # [P, I]
+    ann = np.asarray(data.annotations)
+    K, P = prec.shape[:2]
+    I = dterm.shape[1]
+    nat = np.asarray(nat, np.float64)
+    if nat.ndim == 2:
+        nat = np.broadcast_to(nat[None], (K, P, I))
+    prec_ki = prec[:, None] + np.eye(P)[None, None] * dterm.T[None, :, None]
+    sig = np.linalg.inv(prec_ki)                               # [K,I,P,P]
+    mu = np.einsum('kipq,kqi->kpi', sig, nat)
+    logdet_sig = np.linalg.slogdet(sig)[1]                     # [K, I]
+    quad = np.einsum('kpi,kpi->ki', nat, mu)
+    logh = np.log(np.asarray(hyper, np.float64))               # [A, K]
+    rows = np.minimum(ann, logh.shape[0] - 1)
+    logit = (logh[rows].T - 0.5 * log_det[:, None]
+             + 0.5 * (logdet_sig + quad))
+    logit -= logit.max(axis=0, keepdims=True)
+    delta = np.exp(logit)
+    delta /= delta.sum(axis=0, keepdims=True)
+    diag = np.einsum('kipp->kpi', sig)
+    pm = np.einsum('kpi,ki->pi', mu, delta)
+    pv = np.einsum('kpi,ki->pi', diag + mu ** 2, delta) - pm ** 2
+    return pm, pv, delta
+
+
+def _point(num_pops, num_annotations, kdim, seed=1):
+    data = synthetic.synthetic_problem(num_loci=300, num_pops=num_pops,
+                                       num_components=5, block_size=32,
+                                       num_annotations=num_annotations,
+                                       scale_se=kdim)
+    st = synthetic.synthetic_state(data, seed=seed, compact=True)
+    assert st.nat_mu.ndim == (3 if kdim else 2)
+    rng = np.random.default_rng(seed)
+    K = data.mixture_prec.shape[0]
+    hyper = rng.uniform(0.1, 1.0, (num_annotations, K))
+    hyper /= hyper.sum(axis=1, keepdims=True)
+    st = dataclasses.replace(
+        st, hyper_delta=jnp.asarray(hyper),
+        nat_mu=st.nat_mu + 1e-2 * rng.standard_normal(st.nat_mu.shape),
+        error_scaling=jnp.asarray(rng.uniform(0.8, 1.2, num_pops)))
+    return data, st
+
+
+def _dense_linked(data, pm):
+    dense = blocks.to_dense(data.ld[0])
+    return (dense @ (np.asarray(pm) / np.asarray(data.std_errs)).T).T
 
 
 @pytest.mark.parametrize('num_pops', [1, 2, 3])
 @pytest.mark.parametrize('num_annotations', [1, 3, 12])
 @pytest.mark.parametrize('kdim', [False, True])
-def test_prologue_matches_staging(num_pops, num_annotations, kdim):
-    """Objective, posterior means, and matvec outputs agree with the
-    staged XLA path to float64 rounding across P x A (12 annotations
-    exercises the kernel's one-hot-matmul selection branch; 1 and 3 the
-    broadcast/select branches). kdim runs the per-component [K, P, I]
-    scale_se natural-mean state through the same kernels."""
-    data = synthetic.synthetic_problem(num_loci=300, num_pops=num_pops,
-                                       num_components=5, block_size=32,
-                                       num_annotations=num_annotations,
-                                       scale_se=kdim)
-    st = synthetic.synthetic_state(data, seed=1, compact=True)
-    assert st.nat_mu.ndim == (3 if kdim else 2)
-    (o1, pm1, lk1), (o2, pm2, lk2) = _objective_pair(data, st)
-    assert np.isclose(float(o1), float(o2), rtol=1e-11)
-    # the kernel reassociates the softmax/moment sums (full-logit vs
-    # last-zero convention) — agreement is relative-to-scale, not ulp
-    scale = float(np.abs(np.asarray(pm1)).max())
-    assert np.allclose(np.asarray(pm1), np.asarray(pm2),
-                       rtol=1e-10, atol=1e-10 * scale)
-    # linked goes through the Pallas MATVEC kernel too, which always
-    # accumulates in f32 (block_matvec._kernel) — compare at the
-    # established matvec-kernel band (see test_pallas.py)
-    lscale = float(np.abs(np.asarray(lk1)).max())
-    assert np.allclose(np.asarray(lk1), np.asarray(lk2),
-                       atol=1e-5 * lscale)
+def test_staged_objective_matches_bruteforce(num_pops, num_annotations,
+                                             kdim):
+    """The staged route's posterior means and LD-linked estimates match
+    the float64 brute force, and its objective matches the ELBO of the
+    materialized state (an independent staging of the same terms). kdim
+    runs the per-component [K, P, I] scale_se natural mean."""
+    data, st = _point(num_pops, num_annotations, kdim)
+    obj, pm, linked = engine._objective_compact(data, st, st.nat_mu,
+                                                st.hyper_delta)
+    pm_b, _, _ = _bruteforce(data, st.nat_mu, st.hyper_delta,
+                             st.error_scaling)
+    scale = np.abs(pm_b).max()
+    assert np.allclose(np.asarray(pm), pm_b, rtol=1e-9, atol=1e-12 * scale)
+    lk_b = _dense_linked(data, pm_b)
+    assert np.allclose(np.asarray(linked), lk_b, rtol=1e-9,
+                       atol=1e-12 * np.abs(lk_b).max())
+    mat = engine.materialize_state(data, st)
+    want = engine.elbo_jit(data, mat.sigma, mat.error_scaling, mat.vi_mu,
+                           mat.vi_delta, mat.hyper_delta)
+    assert np.isclose(float(obj), float(want), rtol=1e-10)
+
+
+@pytest.mark.parametrize('num_pops', [1, 2, 3])
+@pytest.mark.parametrize('num_annotations', [1, 3, 12])
+def test_chunked_moments_match_bruteforce(num_pops, num_annotations,
+                                          monkeypatch):
+    """The K-chunked route (chunk width 2, so several chunks and a padded
+    last one) gives the brute-force posterior moments and the staged
+    route's objective."""
+    data, st = _point(num_pops, num_annotations, kdim=False, seed=2)
+    obj_s, _, _ = engine._objective_compact(data, st, st.nat_mu,
+                                            st.hyper_delta)
+    monkeypatch.setattr(engine, '_chunk_kc', lambda *a: 2)
+    pm, pv, _, _, _ = engine._chunked_moments(data, st, st.nat_mu,
+                                              st.hyper_delta)
+    pm_b, pv_b, _ = _bruteforce(data, st.nat_mu, st.hyper_delta,
+                                st.error_scaling)
+    assert np.allclose(np.asarray(pm), pm_b, rtol=1e-9,
+                       atol=1e-12 * np.abs(pm_b).max())
+    assert np.allclose(np.asarray(pv), pv_b, rtol=1e-8,
+                       atol=1e-12 * np.abs(pv_b).max())
+    obj_c, _, _ = engine._objective_chunked(data, st, st.nat_mu,
+                                            st.hyper_delta)
+    assert np.isclose(float(obj_c), float(obj_s), rtol=1e-10)
 
 
 @pytest.mark.parametrize('num_pops', [1, 2, 3])
 @pytest.mark.parametrize('kdim', [False, True])
-def test_delta_sums_matches_sum_annotations(num_pops, kdim):
-    """The fused annotation-sum kernel equals sum_annotations over the
-    XLA-derived vi_delta (the compact hyper-delta update's input), for
-    both the shared and the per-component (scale_se) natural mean."""
-    from vilma_tpu.ops import kernels
-    data = synthetic.synthetic_problem(num_loci=300, num_pops=num_pops,
-                                       num_components=5, block_size=32,
-                                       num_annotations=3, scale_se=kdim)
-    st = synthetic.synthetic_state(data, seed=2, compact=True)
+def test_sum_annotations_matches_bruteforce(num_pops, kdim, monkeypatch):
+    """The hyper-delta update's annotation sums of the derived vi_delta
+    (kernels.sum_annotations; engine._delta_sums_chunked for the shared
+    natural mean) equal brute-force segment sums."""
+    data, st = _point(num_pops, 3, kdim, seed=3)
+    _, _, delta_b = _bruteforce(data, st.nat_mu, st.hyper_delta,
+                                st.error_scaling)
+    ann = np.asarray(data.annotations)
+    want = np.stack([delta_b[:, ann == a].sum(axis=1) for a in range(3)])
     _, _, vi_delta = engine._derive_params(data, st.error_scaling,
                                            st.nat_mu, st.hyper_delta)
-    want = np.asarray(kernels.sum_annotations(vi_delta, data.annotations,
-                                              data.num_annotations))
-    got = np.asarray(engine._delta_sums_fused(
-        data, st.error_scaling, st.nat_mu, st.hyper_delta, True))
-    assert np.allclose(got, want, rtol=1e-9, atol=1e-9 * want.max())
+    got = np.asarray(kernels.sum_annotations(vi_delta, data.annotations,
+                                             data.num_annotations))
+    assert np.allclose(got, want, rtol=1e-9, atol=1e-12)
+    if not kdim:
+        monkeypatch.setattr(engine, '_chunk_kc', lambda *a: 2)
+        got_c = np.asarray(engine._delta_sums_chunked(
+            data, st, st.nat_mu, st.hyper_delta))
+        assert np.allclose(got_c, want, rtol=1e-9, atol=1e-12)
 
 
-def test_prologue_skips_materialized_states():
-    """Materialized states (the P>=4 / direct-API path) must be
-    unperturbed by enabling the kernel — the dispatch lives in the
-    compact objective only."""
-    data = synthetic.synthetic_problem(num_loci=128, num_pops=2,
-                                       num_components=3, block_size=32,
-                                       num_annotations=2, scale_se=True)
-    st = synthetic.synthetic_state(data)
-    blocks.enable_pallas(False)
-    st1, pm1 = engine.outer_step(data, st, line_search_rate=2.0)
-    try:
-        blocks.enable_pallas(True, interpret=True)
-        engine.outer_step.clear_cache()
-        st2, pm2 = engine.outer_step(data, st, line_search_rate=2.0)
-    finally:
-        blocks.enable_pallas(False)
-        engine.outer_step.clear_cache()
-    assert np.allclose(np.asarray(pm1), np.asarray(pm2),
-                       rtol=1e-7, atol=1e-10)
-
-
-def test_compact_trajectory_pallas_interpret_matches_xla():
-    """Six outer steps of a compact fit with every fused kernel enabled
-    (matvec + prologue, interpret mode) track the XLA path — guards
-    kernel enablement on TPU from silently changing fit trajectories."""
-    data = synthetic.synthetic_problem(num_loci=256, num_pops=2,
-                                       num_components=4, block_size=64,
-                                       num_annotations=2)
-
-    def run():
-        st = synthetic.synthetic_state(data, compact=True)
-        for _ in range(6):
-            st, pm = engine.outer_step(data, st, line_search_rate=2.0)
-        return np.asarray(pm), float(st.elbo), np.asarray(st.hyper_delta)
-
-    pm_x, elbo_x, hd_x = run()
-    try:
-        blocks.enable_pallas(True, interpret=True)
-        engine.outer_step.clear_cache()
-        pm_p, elbo_p, hd_p = run()
-    finally:
-        blocks.enable_pallas(False)
-        engine.outer_step.clear_cache()
-    scale = np.abs(pm_x).max()
-    assert np.allclose(pm_p, pm_x, atol=1e-8 * scale)
-    assert abs(elbo_p - elbo_x) <= 1e-8 * abs(elbo_x)
-    assert np.allclose(hd_p, hd_x, rtol=1e-7, atol=1e-10)
-
-
-def test_scale_se_trajectory_pallas_interpret_matches_xla():
-    """Outer steps of a --learn-scaling fit (the per-component [K, P, I]
-    compact state) with every fused kernel enabled track the XLA path —
-    running until the error-scaling EM has fired, so the fused-pv EM
-    branch (engine._update_error_scaling_compact) is covered."""
-    data = synthetic.synthetic_problem(num_loci=256, num_pops=2,
-                                       num_components=4, block_size=64,
-                                       num_annotations=2, scale_se=True)
-
-    def run():
-        st = synthetic.synthetic_state(data, compact=True)
-        em_at = None
-        for it in range(40):
-            st, pm = engine.outer_step(data, st, line_search_rate=2.0)
-            if em_at is None and not np.allclose(
-                    np.asarray(st.error_scaling), 1.0):
-                em_at = it
-            if em_at is not None and it >= em_at + 2:
-                break
-        assert em_at is not None, 'EM never fired'
-        return (np.asarray(pm), float(st.elbo),
-                np.asarray(st.error_scaling))
-
-    pm_x, elbo_x, es_x = run()
-    try:
-        blocks.enable_pallas(True, interpret=True)
-        engine.outer_step.clear_cache()
-        pm_p, elbo_p, es_p = run()
-    finally:
-        blocks.enable_pallas(False)
-        engine.outer_step.clear_cache()
-    scale = np.abs(pm_x).max()
-    assert np.allclose(pm_p, pm_x, atol=1e-8 * scale)
-    assert abs(elbo_p - elbo_x) <= 1e-8 * abs(elbo_x)
-    assert np.allclose(es_p, es_x, rtol=1e-8)
-
-
-def test_sharded_compact_prologue_matches_single_device():
-    """Under the shard-local mesh layout the prologue runs per-device in
-    one shard_map (scalar psum only); it must reproduce the single-device
-    kernel path on the real slots and keep pad slots inert."""
+@pytest.mark.parametrize('num_pops', [2, 3])
+def test_sharded_chunked_step_matches_single_device(num_pops, monkeypatch):
+    """Under the shard-local mesh layout the K-chunked route runs on
+    span-sharded [P, I] operands (its K-reductions are per SNP, the
+    objective's sums psum'd by SPMD); one outer step reproduces the
+    single-device step on the real slots and keeps pad slots inert."""
+    monkeypatch.setattr(engine, '_chunk_kc', lambda *a: 2)
+    monkeypatch.setattr(engine, '_use_chunked',
+                        lambda data, nat: nat.ndim == 2)
+    engine.outer_step.clear_cache()
     num_loci = 520
     rng = np.random.default_rng(11)
     factors, indices = [], []
-    bounds = [(0, 96), (96, 256), (256, 400), (400, 520)]
-    for a, b in bounds:
-        keep = np.arange(a, b)
-        m = rng.standard_normal((keep.size, keep.size))
+    for a, b in [(0, 96), (96, 256), (256, 400), (400, 520)]:
+        m = rng.standard_normal((b - a, b - a))
         factors.append(lowrank.factor_block(
-            X=m @ m.T + keep.size * np.eye(keep.size), t=1.0,
+            X=m @ m.T + (b - a) * np.eye(b - a), t=1.0,
             check_symmetric=False))
-        indices.append(keep)
+        indices.append(np.arange(a, b))
     ld = blocks.pack(factors, indices, num_loci)
-
-    std_errs = rng.uniform(0.01, 0.05, (2, num_loci))
-    betas = rng.standard_normal((2, num_loci)) * std_errs * 2
-    covs = [np.eye(2) * s for s in (1e-6, 1e-4, 1e-2)]
+    std_errs = rng.uniform(0.01, 0.05, (num_pops, num_loci))
+    betas = rng.standard_normal((num_pops, num_loci)) * std_errs * 2
+    covs = [np.eye(num_pops) * s for s in (1e-6, 1e-4, 1e-3, 1e-2, 1e-1)]
     annotations = np.zeros((num_loci, 2))
     annotations[np.arange(num_loci), rng.integers(0, 2, num_loci)] = 1
 
     def build(ld_mats, b, se, annot):
         return engine.build_model_data(
             b, se, ld_mats, annot, covs, scaled=False, scale_se=False,
-            gwas_N=np.full(2, 1e5), init_hg=np.full(2, 0.3))
+            gwas_N=np.full(num_pops, 1e5), init_hg=np.full(num_pops, 0.3))
 
     try:
-        blocks.enable_pallas(True, interpret=True)
-        engine.outer_step.clear_cache()
-
-        data1 = build([ld, ld], betas, std_errs, annotations)
+        data1 = build([ld] * num_pops, betas, std_errs, annotations)
         state1 = synthetic.synthetic_state(data1, compact=True)
         st1, pm1 = engine.outer_step(data1, state1, line_search_rate=2.0)
 
@@ -212,7 +192,7 @@ def test_sharded_compact_prologue_matches_single_device():
         mesh = mesh_mod.make_mesh(n_snp=8, n_comp=1)
         with jax.set_mesh(mesh):
             data2 = build(
-                [lds, lds],
+                [lds] * num_pops,
                 alignment.relayout_rows(betas, lmap, L, fill=0.0),
                 alignment.relayout_rows(std_errs, lmap, L, fill=1.0),
                 alignment.relayout_annotations(annotations, lmap, L))
@@ -230,10 +210,10 @@ def test_sharded_compact_prologue_matches_single_device():
             st2, pm2 = engine.outer_step(sdata, sstate,
                                          line_search_rate=2.0)
     finally:
-        blocks.enable_pallas(False)
         engine.outer_step.clear_cache()
 
     assert np.allclose(np.asarray(pm2)[:, lmap], np.asarray(pm1),
                        rtol=1e-9, atol=1e-11)
     pads = np.setdiff1d(np.arange(L), lmap)
     assert np.all(np.asarray(pm2)[:, pads] == 0)
+    assert np.isclose(float(st2.elbo), float(st1.elbo), rtol=1e-10)

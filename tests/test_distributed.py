@@ -1,7 +1,7 @@
 """Multi-host input pipeline tests.
 
 The reference has no distributed anything (SURVEY.md section 2.4); these
-pin the TPU-native multi-host design (SURVEY.md section 7.3 item 6):
+pin the multi-host design (SURVEY.md section 7.3 item 6):
 
  * sharded-assembly equivalence in-process: load_ld_sharded with a mesh
    (single process, 8 simulated devices) must produce the same operator
@@ -211,7 +211,7 @@ def test_two_process_fit_matches_single_process(tmp_path):
 
 @pytest.mark.slow
 def test_four_process_fit_matches_single_process(tmp_path):
-    """The north-star host count (BASELINE.json: 1 -> 4 hosts): four
+    """Four hosts, the target host count: four
     processes, two simulated devices each, one 8-way global snp mesh,
     shard-local layout."""
     _cluster_fit_matches_single_process(tmp_path, nproc=4, ndev=2)

@@ -11,9 +11,9 @@ components). These tests pin:
  2. trajectory-level equality with the kdim compact path through real
     EM events (the representations must be the SAME fit);
  3. MultiPopVI epoch-mode selection, checkpoint keys, and resume;
- 4. the fused Mosaic epoch kernels (interpret mode) against the XLA
-    staging;
- 5. the epoch step under a shard-local mesh against single-device.
+ 4. the K-chunked epoch route against the staged one;
+ 5. the epoch step under a shard-local mesh against single-device, on
+    both routes.
 """
 import dataclasses
 
@@ -212,9 +212,11 @@ def test_multipopvi_epoch_mode_and_resume(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize('num_pops', [1, 2, 3])
 @pytest.mark.parametrize('num_annotations', [1, 12])
-def test_epoch_prologue_matches_staging(num_pops, num_annotations):
-    """The fused Mosaic epoch kernels (interpret mode) reproduce the
-    XLA-staged epoch objective and delta sums."""
+def test_epoch_prologue_matches_staging(num_pops, num_annotations,
+                                        monkeypatch):
+    """The K-chunked epoch route (chunk width 2: several chunks and a
+    padded last one) reproduces the staged epoch objective and delta
+    sums."""
     data = synthetic.synthetic_problem(num_loci=300, num_pops=num_pops,
                                        num_components=5, block_size=32,
                                        num_annotations=num_annotations,
@@ -230,19 +232,14 @@ def test_epoch_prologue_matches_staging(num_pops, num_annotations):
         st, error_scaling=jnp.asarray(rng.uniform(0.8, 1.2, P),
                                       dtype=st.nat_mu.dtype))
 
-    blocks.enable_pallas(False)
     want = engine._objective_epoch(data, st, st.nat_mu, st.nat_hist_c,
                                    st.hyper_delta)
-    want_sums = engine._delta_sums_epoch(data, st, st.hyper_delta,
-                                         use_fused=False, interp=False)
-    try:
-        blocks.enable_pallas(True, interpret=True)
-        got = engine._objective_epoch(data, st, st.nat_mu,
-                                      st.nat_hist_c, st.hyper_delta)
-        got_sums = engine._delta_sums_epoch(data, st, st.hyper_delta,
-                                            use_fused=True, interp=True)
-    finally:
-        blocks.enable_pallas(False)
+    want_sums = engine._delta_sums_epoch(data, st, st.hyper_delta)
+    monkeypatch.setattr(engine, '_chunk_kc', lambda *a: 2)
+    monkeypatch.setattr(engine, '_use_chunked', lambda *a: True)
+    got = engine._objective_epoch(data, st, st.nat_mu, st.nat_hist_c,
+                                  st.hyper_delta)
+    got_sums = engine._delta_sums_epoch(data, st, st.hyper_delta)
     assert np.isclose(float(want[0]), float(got[0]), rtol=1e-10)
     scale = float(np.abs(np.asarray(want[1])).max())
     assert np.allclose(np.asarray(want[1]), np.asarray(got[1]),
@@ -251,11 +248,11 @@ def test_epoch_prologue_matches_staging(num_pops, num_annotations):
                        rtol=1e-9, atol=1e-12)
 
 
-@pytest.mark.parametrize('fused', [False, True])
-def test_shard_local_epoch_matches_unsharded(fused):
+@pytest.mark.parametrize('chunked', [False, True])
+def test_shard_local_epoch_matches_unsharded(chunked, monkeypatch):
     """The epoch step under the shard-local mesh (history sharded
-    P(None, None, 'snp'); fused=True adds the interpret-mode epoch
-    Mosaic kernels) reproduces the single-device epoch step."""
+    P(None, None, 'snp'); chunked=True runs the K-chunked route)
+    reproduces the single-device epoch step."""
     from vilma_tpu.parallel import alignment, mesh as mesh_mod
     num_loci = 512
     rng = np.random.default_rng(9)
@@ -281,10 +278,11 @@ def test_shard_local_epoch_matches_unsharded(fused):
     hyper = rng.uniform(0.1, 1.0, (2, 3))
     hyper /= hyper.sum(axis=1, keepdims=True)
     u = rng.standard_normal((2, num_loci)) * 1e-2
+    if chunked:
+        monkeypatch.setattr(engine, '_chunk_kc', lambda *a: 2)
+        monkeypatch.setattr(engine, '_use_chunked', lambda *a: True)
+    engine.outer_step.clear_cache()
     try:
-        if fused:
-            blocks.enable_pallas(True, interpret=True)
-            engine.outer_step.clear_cache()
         data1 = build([ld, ld], betas, std_errs, annotations)
         state1 = _epoch_state(data1, u, hyper, B=4, seed=3)
         st1, pm1 = engine.outer_step(data1, state1, line_search_rate=2.0)
@@ -320,9 +318,7 @@ def test_shard_local_epoch_matches_unsharded(fused):
             st2, pm2 = engine.outer_step(sdata, sstate,
                                          line_search_rate=2.0)
     finally:
-        if fused:
-            blocks.enable_pallas(False)
-            engine.outer_step.clear_cache()
+        engine.outer_step.clear_cache()
 
     assert np.allclose(np.asarray(pm2)[:, lmap], np.asarray(pm1),
                        rtol=1e-9, atol=1e-11)

@@ -1,4 +1,4 @@
-"""f32 fast-path accuracy: the TPU precision mode must reproduce the f64
+"""f32 fast-path accuracy: the f32 precision mode must reproduce the f64
 parity path within statistical tolerance (posterior SDs are ~SE-scale;
 f32 noise must stay well below them)."""
 import numpy as np

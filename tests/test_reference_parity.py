@@ -2,7 +2,7 @@
 
 The strongest equivalence evidence available: the reference's own
 VIScheme/MultiPopVI (imported from /root/reference with a no-op numba
-shim, see reference_oracle.py) is run side by side with the TPU-native
+shim, see reference_oracle.py) is run side by side with this
 engine on identical inputs and identical RNG streams, comparing
 initialization, single coordinate-ascent steps, and full optimization.
 """

@@ -1,13 +1,12 @@
 """Mesh-sharding tests on a simulated 8-device CPU mesh.
 
 The reference has nothing distributed (SURVEY.md section 2.4); these tests
-validate the TPU-native parallel decomposition: the full jitted VI step
+validate the parallel decomposition: the full jitted VI step
 runs under block/SNP sharding (+ component sharding) and produces the same
 numbers as the single-device run.
 """
 import numpy as np
 import jax
-import pytest
 
 from vilma_tpu.inference import engine
 from vilma_tpu.ops import blocks, lowrank
@@ -208,12 +207,10 @@ def test_shard_local_step_matches_unsharded():
     assert np.all(np.asarray(pm2)[:, pads] == 0)
 
 
-@pytest.mark.parametrize('fused', [False, True])
-def test_shard_local_scale_se_compact_matches_unsharded(fused):
+def test_shard_local_scale_se_compact_matches_unsharded():
     """The per-component [K, P, I] compact scale_se state under the
-    shard-local mesh (kdim nat sharded P(comp, None, 'snp'); fused=True
-    adds the interpret-mode kdim Mosaic kernels) reproduces the plain
-    single-device compact step."""
+    shard-local mesh (kdim nat sharded P(comp, None, 'snp')) reproduces
+    the plain single-device compact step."""
     import dataclasses
     num_loci = 512
     rng = np.random.default_rng(9)
@@ -236,10 +233,8 @@ def test_shard_local_scale_se_compact_matches_unsharded(fused):
             b, se, ld_mats, annot, covs, scaled=False, scale_se=True,
             gwas_N=np.full(2, 1e5), init_hg=np.full(2, 0.3))
 
+    engine.outer_step.clear_cache()
     try:
-        if fused:
-            blocks.enable_pallas(True, interpret=True)
-            engine.outer_step.clear_cache()
         data1 = build([ld, ld], betas, std_errs, annotations)
         state1 = synthetic.synthetic_state(data1, compact=True)
         assert state1.nat_mu.ndim == 3
@@ -272,9 +267,7 @@ def test_shard_local_scale_se_compact_matches_unsharded(fused):
             st2, pm2 = engine.outer_step(sdata, sstate,
                                          line_search_rate=2.0)
     finally:
-        if fused:
-            blocks.enable_pallas(False)
-            engine.outer_step.clear_cache()
+        engine.outer_step.clear_cache()
 
     assert np.allclose(np.asarray(pm2)[:, lmap], np.asarray(pm1),
                        rtol=1e-9, atol=1e-11)

@@ -1,6 +1,6 @@
 """Validation modes: gradient-ascent ELBO and NUTS/SMC posterior checks.
 
-BASELINE.json north star: gradient-based ELBO optimization plus NUTS/SMC
+Gradient-based ELBO optimization plus NUTS/SMC
 posterior checks on small blocks validate the coordinate-ascent VI
 engine's answers against independent inference procedures.
 """

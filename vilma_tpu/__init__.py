@@ -1,10 +1,10 @@
-"""vilma_tpu: a TPU-native (JAX/XLA/Pallas) framework for estimating variant
+"""vilma_tpu: a JAX/XLA framework for estimating variant
 effect sizes and effect-size distributions from GWAS summary statistics.
 
-Provides the same capabilities as the reference `vilma` package
-(/root/reference/src/vilma/__init__.py) redesigned for TPU execution:
-block-sharded LD tensors, a pure jitted coordinate-ascent VI engine, and
-mesh-parallel execution via jax.sharding.
+Provides the same capabilities as the reference `vilma` package,
+redesigned for accelerator execution: block-sharded LD tensors, a pure
+jitted coordinate-ascent VI engine, and mesh-parallel execution via
+jax.sharding.
 """
 
 VERSION = '0.1.0'
@@ -14,7 +14,7 @@ from vilma_tpu import utils  # noqa: F401
 
 def __getattr__(name):
     # Lazy sub-imports so that `import vilma_tpu` stays cheap and does not
-    # pull in pandas/h5py unless needed (mirrors `vilma.load` access pattern,
+    # pull in JAX unless needed (mirrors `vilma.load` access pattern,
     # reference frontend.py:4-12).
     if name in ('load', 'io'):
         from vilma_tpu import io as _io

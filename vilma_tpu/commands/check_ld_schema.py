@@ -9,9 +9,8 @@ the approximation-quality diagnostic for choosing `--ldthresh`.
 import logging
 
 import numpy as np
-import pandas as pd
 
-from vilma_tpu.io import load
+from vilma_tpu.io import load, table
 from vilma_tpu.ops import blocks
 
 _VAR_COLUMNS = ['ID', 'CHROM', 'BP', 'CM', 'A1', 'A2']
@@ -78,19 +77,19 @@ def compute_trace(block_ld_mat, one_hot_annotations):
 
     traces = np.asarray(traces)
     counts = np.asarray(counts)
-    return pd.DataFrame({'annotation': labels,
-                         'trace': traces,
-                         'num_snps': counts,
-                         'ratio': traces / counts})
+    return table.Table({'annotation': np.array(labels, dtype=object),
+                        'trace': traces,
+                        'num_snps': counts,
+                        'ratio': traces / counts})
 
 
 def combine_vars(ld_schema):
     """Concatenate every .var file of a schema into one variant table
     (reference check_ld_schema.py:126-144)."""
-    frames = (pd.read_csv(var_path, header=None, sep=r'\s+',
-                          names=_VAR_COLUMNS)
-              for var_path, _ in load.schema_iterator(ld_schema))
-    return pd.concat(frames, ignore_index=True)
+    frames = [table.read_table(var_path, names=_VAR_COLUMNS)
+              for var_path, _ in load.schema_iterator(ld_schema)]
+    return table.Table({c: np.concatenate([f[c] for f in frames])
+                        for c in _VAR_COLUMNS})
 
 
 def _validate(args):
@@ -108,14 +107,13 @@ def _validate(args):
 def _run_trace(args, all_vars):
     logging.info('Computing trace statistics.')
     variants = (load.load_variant_list(args.trace_extract)
-                if args.trace_extract else all_vars.copy())
+                if args.trace_extract else all_vars)
     annotations, denylist = load.load_annotations(args.trace_annotations,
                                                   variants)
     ld_mat, _ = load.load_ld_from_schema(
         args.ld_schema, variants=variants, denylist=denylist,
         ldthresh=args.trace_ldthresh, mmap=args.mmap)
-    compute_trace(ld_mat, annotations).to_csv(args.trace, sep='\t',
-                                              index=False)
+    table.write_tsv(args.trace, compute_trace(ld_mat, annotations))
 
 
 def main(args):
@@ -132,4 +130,4 @@ def main(args):
         _run_trace(args, all_vars)
     if args.listvars:
         logging.info('Saving list of variants')
-        all_vars.to_csv(args.listvars, sep='\t', index=False)
+        table.write_tsv(args.listvars, all_vars)

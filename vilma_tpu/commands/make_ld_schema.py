@@ -11,7 +11,7 @@ of the reference's per-SNP Python loop: genotypes are decoded in bulk by
 the native reader (vilma_tpu.io.plink), block membership is a single
 searchsorted over every variant at once, monomorphic screening is one
 vectorized nanstd, and large blocks use a matmul-based NaN-aware
-correlation (four BLAS GEMMs) instead of pandas' per-pair loop.
+correlation (four BLAS GEMMs) instead of a per-pair loop.
 """
 import logging
 import os
@@ -19,15 +19,13 @@ import warnings
 from pathlib import Path
 
 import numpy as np
-import pandas as pd
 
-from vilma_tpu.io import plink
+from vilma_tpu.io import plink, table
 from vilma_tpu.ops import lowrank
 
-# below this many SNPs a block's correlation goes through pandas (exact
-# byte-parity with the reference on the bundled examples); at or above it
-# the O(n^2 * samples) work runs as GEMMs instead of pandas' cython
-# per-pair loop
+# below this many SNPs a block's correlation takes the per-pair two-pass
+# form of pandas.DataFrame.corr() (the reference's semantics, exact on the
+# bundled examples); at or above it the O(n^2 * samples) work runs as GEMMs
 _FAST_CORR_MIN_SNPS = 128
 
 
@@ -60,21 +58,26 @@ def args(super_parser):
 def _get_ld_blocks(bedfile_name):
     """Per-chromosome LD block boundary tables from a UCSC-style bed file.
 
-    Returns {chrom: DataFrame[start, end] sorted by end}; overlapping
+    Returns {chrom: Table[start, end] sorted by end}; overlapping
     intervals are rejected (reference make_ld_schema.py:59-61 semantics).
+    Text after '#' on a line is a comment.
     """
-    table = pd.read_csv(bedfile_name, names=['chrom', 'start', 'end'],
-                        comment='#', sep=r'\s+', header=None,
-                        dtype={'chrom': str, 'start': int, 'end': int})
+    rows = {}
+    with open(bedfile_name) as fh:
+        for line in fh:
+            fields = line.split('#', 1)[0].split()
+            if fields:
+                chrom, start, end = fields[:3]
+                rows.setdefault(chrom, []).append((int(start), int(end)))
     per_chrom = {}
-    for chrom, sub in table.groupby('chrom', sort=False):
-        sub = sub.sort_values(by='end', ignore_index=True)
-        starts = sub.start.to_numpy()
-        ends = sub.end.to_numpy()
+    for chrom, pairs in rows.items():
+        pairs = np.array(sorted(pairs, key=lambda se: se[1]),
+                         dtype=np.int64)
+        starts, ends = pairs[:, 0], pairs[:, 1]
         if np.any(starts[1:] < ends[:-1]):
             raise ValueError('The LD-block bed file has overlapping '
-                         'intervals.')
-        per_chrom[str(chrom)] = sub
+                             'intervals.')
+        per_chrom[chrom] = table.Table({'start': starts, 'end': ends})
     return per_chrom
 
 
@@ -113,12 +116,33 @@ def _nan_corr(genos):
     """Pairwise correlation of a [samples, snps] genotype block.
 
     pandas.DataFrame.corr() is the semantic spec (reference
-    make_ld_schema.py:78); large blocks use the vectorized GEMM form,
-    which matches it to ~1e-13 (see tests/test_command_units.py).
+    make_ld_schema.py:78); small blocks take its per-pair two-pass form
+    (`_nan_corr_pairwise`), large blocks the vectorized GEMM form, which
+    matches it to ~1e-13 (see tests/test_command_units.py).
     """
     if genos.shape[1] >= _FAST_CORR_MIN_SNPS:
         return _nan_corr_fast(genos)
-    return pd.DataFrame(genos).corr().to_numpy()
+    return _nan_corr_pairwise(genos)
+
+
+def _nan_corr_pairwise(genos):
+    """Pairwise-complete Pearson correlation, pair by pair: means over
+    the samples observed for both SNPs, then centered sums (NaN where
+    fewer than 2 samples are shared or a column is constant there)."""
+    valid = ~np.isnan(genos)
+    n = genos.shape[1]
+    corr = np.full((n, n), np.nan)
+    for i in range(n):
+        for j in range(i + 1):
+            both = valid[:, i] & valid[:, j]
+            if both.sum() < 2:
+                continue
+            x = genos[both, i] - genos[both, i].mean()
+            y = genos[both, j] - genos[both, j].mean()
+            denom = np.sqrt((x * x).sum() * (y * y).sum())
+            if denom != 0:
+                corr[i, j] = corr[j, i] = (x * y).sum() / denom
+    return corr
 
 
 def _assign_to_blocks(blocks, plink_data, variants=None):
@@ -145,8 +169,8 @@ def _assign_to_blocks(blocks, plink_data, variants=None):
                          'file; this one mixes several.')
 
     bp = np.asarray([lo.bp_position for lo in loci], dtype=np.int64)
-    starts = blocks[chromosome].start.to_numpy()
-    ends = blocks[chromosome].end.to_numpy()
+    starts = blocks[chromosome]['start']
+    ends = blocks[chromosome]['end']
     block_idx = np.searchsorted(starts, bp - 1, side='right') - 1
     in_block = block_idx >= 0
     in_block[in_block] &= bp[in_block] <= ends[block_idx[in_block]]
@@ -169,7 +193,7 @@ def _assign_to_blocks(blocks, plink_data, variants=None):
     genos = genos[polymorphic]
 
     out = {}
-    for b in pd.unique(block_idx[keep_rows]):
+    for b in dict.fromkeys(block_idx[keep_rows].tolist()):
         members = block_idx[keep_rows] == b
         ids = [[loci[i].name, chromosome, loci[i].bp_position,
                 loci[i].position, loci[i].allele1, loci[i].allele2]
@@ -199,8 +223,8 @@ def _write_block(out_root, key, payload, ldthresh):
 
 
 def _load_extract_set(extract_path):
-    frame = pd.read_csv(extract_path, sep=r'\s+', header=0)
-    if 'ID' not in frame.columns:
+    frame = table.read_table(extract_path)
+    if 'ID' not in frame:
         raise ValueError('The extract file ' + extract_path
                          + ' has no ID column.')
     return set(frame['ID'])

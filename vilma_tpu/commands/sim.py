@@ -19,9 +19,8 @@ import logging
 import pickle
 
 import numpy as np
-import pandas as pd
 
-from vilma_tpu.io import load
+from vilma_tpu.io import load, table
 from vilma_tpu.ops import blocks
 
 
@@ -114,8 +113,11 @@ def sim_gwas(true_beta, std_errs, ld_mat):
 def _combined_variants(sumstats_paths):
     """Union of the variant lists across all sumstats files."""
     frames = [load.load_variant_list(path) for path in sumstats_paths]
-    return pd.concat(frames, ignore_index=True).drop_duplicates(
-        subset='ID', ignore_index=True)
+    cols = {c: np.concatenate([f[c] for f in frames])
+            for c in load.VARIANT_COLUMNS}
+    _, first = np.unique(cols['ID'].astype(str), return_index=True)
+    keep = np.sort(first)
+    return table.Table({c: v[keep] for c, v in cols.items()})
 
 
 def _fill_missing_annotations(annotations, denylist):
@@ -193,7 +195,7 @@ def main(args):
         keep_bool[missing] = False
         keep_bool[this_missing_ld] = False
         std_errs[idx, keep_bool] = (np.sqrt(1 / n_scale)
-                                    * these_sstats.SE.loc[keep_bool])
+                                    * these_sstats.SE[keep_bool])
 
     with open(args.covariance, 'rb') as pickle_file:
         cov_mats = np.array(pickle.load(pickle_file)[0])
@@ -208,11 +210,11 @@ def main(args):
 
     for p, name in enumerate(names):
         logging.info('Saving results for cohort %s', name)
-        to_save = all_vars.copy()
-        to_save['SE'] = std_errs[p]
-        to_save['BETA'] = sim_beta_hat[p]
-        to_save['true_beta'] = true_effects[p]
-        to_save.loc[to_save.SE < 1e-99, 'SE'] = np.nan
-        to_save = to_save.dropna()
-        to_save.to_csv(args.output + '.' + name + '.simgwas.tsv',
-                       sep='\t', index=False)
+        se = np.where(std_errs[p] < 1e-99, np.nan, std_errs[p])
+        keep = ~(np.isnan(se) | np.isnan(sim_beta_hat[p])
+                 | np.isnan(true_effects[p]))
+        to_save = {c: all_vars[c][keep] for c in load.VARIANT_COLUMNS}
+        to_save.update(SE=se[keep], BETA=sim_beta_hat[p][keep],
+                       true_beta=true_effects[p][keep])
+        table.write_tsv(args.output + '.' + name + '.simgwas.tsv',
+                        to_save)

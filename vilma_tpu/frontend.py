@@ -39,7 +39,7 @@ def build_parser():
         description='vilma-tpu v%s uses variational inference to estimate '
                     'variant effect sizes from GWAS summary data while '
                     'simultaneously learning the overall distribution of '
-                    'effects, accelerated on TPUs via JAX/XLA.' % VERSION,
+                    'effects, accelerated via JAX/XLA.' % VERSION,
         usage='vilma-tpu <command> <options>')
     subparsers = parser.add_subparsers(title='Commands', dest='command')
     dispatch = {}
@@ -69,6 +69,8 @@ def main(argv=None):
         parser.print_help()
         sys.exit(0)
     _start_logging(args.logfile, args.verbose)
+    from vilma_tpu.utils.cache import configure_compile_cache
+    configure_compile_cache()
     run(args)
 
 

@@ -1,4 +1,4 @@
-"""Coordinate-ascent variational inference engine, TPU-native.
+"""Coordinate-ascent variational inference engine, in JAX.
 
 Functionally equivalent to the reference's VIScheme/MultiPopVI
 (reference variational_inference.py:27-889) but redesigned for XLA:
@@ -115,7 +115,7 @@ class VIState:
     vi_mu: jnp.ndarray            # [K, P, I] (None in compact mode)
     vi_delta: jnp.ndarray         # [K, I] (K-major; the reference's
     #   vi_delta is its [I, K] transpose — see kernels.fast_posterior_mean
-    #   for the TPU lane-padding rationale; .npz checkpoints keep [I, K])
+    #   for the layout rationale; .npz checkpoints keep [I, K])
     hyper_delta: jnp.ndarray      # [A, K]
     error_scaling: jnp.ndarray    # [P]
     nat_grad_vi_delta: jnp.ndarray  # [K-1, I] (None in compact mode)
@@ -177,7 +177,7 @@ def _err_rtol(dtype):
     evaluation that produced orig_obj vs the line-search loop body), so
     the two values legitimately differ by cross-program rounding noise —
     relative ~1e-4 was observed at the 100K-SNP scale, which spuriously
-    raised 'Encountered a numerical error' on a healthy TPU fit. A 1e-3
+    raised 'Encountered a numerical error' on a healthy f32 fit. A 1e-3
     band still catches real divergence (orders of magnitude, NaN) while
     tolerating evaluation noise; f64 keeps the reference's exact guard.
     """
@@ -206,20 +206,23 @@ def _ld_scaled_dot(data, post_means):
 
     Populations sharing an LD matrix (ModelData.ld_index) are batched
     into ONE multi-RHS pass (blocks.dot_multi), so the dominant U
-    tensors stream from HBM once instead of once per cohort."""
-    scaled_mu = post_means / data.std_errs
-    P = scaled_mu.shape[0]
-    outs = [None] * P
-    for m in range(len(data.ld)):
-        pops = [p for p in range(P) if data.ld_index[p] == m]
-        if len(pops) == 1:
-            outs[pops[0]] = blocks_mod.dot(data.ld[m], scaled_mu[pops[0]])
-        elif pops:
-            ys = blocks_mod.dot_multi(data.ld[m],
-                                      scaled_mu[jnp.array(pops)])
-            for j, p in enumerate(pops):
-                outs[p] = ys[j]
-    return scaled_mu, jnp.stack(outs)
+    tensors stream from device memory once instead of once per cohort.
+    Traced under the 'ld_matvec' scope."""
+    with jax.named_scope('ld_matvec'):
+        scaled_mu = post_means / data.std_errs
+        P = scaled_mu.shape[0]
+        outs = [None] * P
+        for m in range(len(data.ld)):
+            pops = [p for p in range(P) if data.ld_index[p] == m]
+            if len(pops) == 1:
+                outs[pops[0]] = blocks_mod.dot(data.ld[m],
+                                               scaled_mu[pops[0]])
+            elif pops:
+                ys = blocks_mod.dot_multi(data.ld[m],
+                                          scaled_mu[jnp.array(pops)])
+                for j, p in enumerate(pops):
+                    outs[p] = ys[j]
+        return scaled_mu, jnp.stack(outs)
 
 
 def log_likelihood_terms(data, sigma, error_scaling, vi_mu, vi_delta):
@@ -576,144 +579,6 @@ def _derive_params(data, error_scaling, nat_mu, hyper_delta):
     return sigma, vi_mu, vi_delta
 
 
-def _prologue_supported(data, nat_mu):
-    from vilma_tpu.ops.pallas import compact_obj
-    P = data.mixture_prec.shape[1]
-    K = data.mixture_prec.shape[0]
-    return compact_obj.supported(P, K, jnp.dtype(nat_mu.dtype),
-                                 kdim=nat_mu.ndim == 3)
-
-
-def _fused_operands(data, error_scaling, nat_mu, hyper_delta):
-    """Operand tuple shared by the fused compact kernels
-    (ops/pallas/compact_obj): coefficient table, transposed prior
-    scores, and the per-SNP [*, I] arrays, plus whether the LD layout
-    is shard-local (the kernels then run per-device in a shard_map)."""
-    from vilma_tpu.ops.pallas import compact_obj
-    dterm = _diag_term(data, error_scaling)
-    coeffs = compact_obj.build_coeffs(data.mixture_prec, data.log_det)
-    scores_t = (jnp.log(hyper_delta)
-                - 0.5 * data.log_det).T.astype(nat_mu.dtype)
-    sharded = bool(data.ld) and getattr(data.ld[0], 'shard_count', 1) > 1
-    return (coeffs, scores_t, data.annotations, dterm, nat_mu), sharded
-
-
-def _fused_shard_map(local, out_specs, nat_ndim=2):
-    """shard_map over the 'snp' axis with the canonical fused-kernel
-    in_specs (replicated tables, span-sharded [*, I] operands; the
-    natural mean is [P, I] or the scale_se [K, P, I] state).
-
-    check_vma=False: pallas_call cannot declare output vma (see
-    blocks._dot_sharded); cross-device outputs are psum'd explicitly
-    inside `local`."""
-    from jax.sharding import PartitionSpec as PS
-    nat_spec = (PS(None, 'snp') if nat_ndim == 2
-                else PS(None, None, 'snp'))
-    return jax.shard_map(
-        local,
-        in_specs=(PS(), PS(), PS('snp'), PS(None, 'snp'), nat_spec),
-        out_specs=out_specs, check_vma=False)
-
-
-def _prologue_fused(data, error_scaling, nat_mu, hyper_delta, interpret):
-    """(post_means, post_vars, beta_kl) via the fused Mosaic prologue
-    (ops/pallas/compact_obj.py). Under a shard-local mesh layout the
-    [P, I] operands are already span-sharded, so the only collective
-    is the psum of the beta-KL scalar."""
-    from jax.sharding import PartitionSpec as PS
-    from vilma_tpu.ops.pallas import compact_obj
-    args, sharded = _fused_operands(data, error_scaling, nat_mu,
-                                    hyper_delta)
-    A = data.num_annotations
-    if sharded:
-        def local(co, sc, ann, dt, nm):
-            pm, pv, kl = compact_obj.prologue(
-                co, sc, ann, dt, nm, num_annotations=A,
-                interpret=interpret)
-            return pm, pv, jax.lax.psum(kl, 'snp')
-
-        return _fused_shard_map(
-            local, (PS(None, 'snp'), PS(None, 'snp'), PS()),
-            nat_ndim=nat_mu.ndim)(*args)
-    return compact_obj.prologue(*args, num_annotations=A,
-                                interpret=interpret)
-
-
-def _epoch_prologue_supported(data, st, nat_u):
-    from vilma_tpu.ops.pallas import compact_obj
-    K, P = data.mixture_prec.shape[:2]
-    return compact_obj.supported(P, K, jnp.dtype(nat_u.dtype),
-                                 epochs=st.nat_hist.shape[0])
-
-
-def _epoch_fused_operands(data, st, nat_u, hist_c, hyper_delta):
-    """Operand tuple of the fused epoch kernels
-    (compact_obj.prologue_epochs): the raw scaled_ld_diags stream once
-    and the per-epoch diag terms form in-register from the [B+1, P]
-    inverse-scaling table (row 0 = the CURRENT scaling)."""
-    from vilma_tpu.ops.pallas import compact_obj
-    coeffs = compact_obj.build_coeffs(data.mixture_prec, data.log_det)
-    scores_t = (jnp.log(hyper_delta)
-                - 0.5 * data.log_det).T.astype(nat_u.dtype)
-    inv_scales = jnp.concatenate(
-        [1.0 / st.error_scaling[None], 1.0 / st.nat_hist_scale],
-        axis=0).astype(nat_u.dtype)
-    sharded = bool(data.ld) and getattr(data.ld[0], 'shard_count', 1) > 1
-    args = (coeffs, scores_t, data.annotations, data.scaled_ld_diags,
-            nat_u, st.nat_hist, inv_scales,
-            hist_c.astype(nat_u.dtype))
-    return args, sharded
-
-
-def _epoch_fused_shard_map(local, out_specs):
-    """shard_map wrapper for the epoch kernels (see _fused_shard_map)."""
-    from jax.sharding import PartitionSpec as PS
-    return jax.shard_map(
-        local,
-        in_specs=(PS(), PS(), PS('snp'), PS(None, 'snp'),
-                  PS(None, 'snp'), PS(None, None, 'snp'), PS(), PS()),
-        out_specs=out_specs, check_vma=False)
-
-
-def _epoch_prologue_fused(data, st, nat_u, hist_c, hyper_delta,
-                          interpret):
-    from jax.sharding import PartitionSpec as PS
-    from vilma_tpu.ops.pallas import compact_obj
-    args, sharded = _epoch_fused_operands(data, st, nat_u, hist_c,
-                                          hyper_delta)
-    A = data.num_annotations
-    if sharded:
-        def local(co, sc, ann, sld, u, hv, isc, c):
-            pm, pv, kl = compact_obj.prologue_epochs(
-                co, sc, ann, sld, u, hv, isc, c, num_annotations=A,
-                interpret=interpret)
-            return pm, pv, jax.lax.psum(kl, 'snp')
-
-        return _epoch_fused_shard_map(
-            local, (PS(None, 'snp'), PS(None, 'snp'), PS()))(*args)
-    return compact_obj.prologue_epochs(*args, num_annotations=A,
-                                       interpret=interpret)
-
-
-def _epoch_delta_sums_fused(data, st, nat_u, hist_c, hyper_delta,
-                            interpret):
-    from jax.sharding import PartitionSpec as PS
-    from vilma_tpu.ops.pallas import compact_obj
-    args, sharded = _epoch_fused_operands(data, st, nat_u, hist_c,
-                                          hyper_delta)
-    A = data.num_annotations
-    if sharded:
-        def local(co, sc, ann, sld, u, hv, isc, c):
-            s = compact_obj.delta_sums_epochs(
-                co, sc, ann, sld, u, hv, isc, c, num_annotations=A,
-                interpret=interpret)
-            return jax.lax.psum(s, 'snp')
-
-        return _epoch_fused_shard_map(local, PS())(*args)
-    return compact_obj.delta_sums_epochs(*args, num_annotations=A,
-                                         interpret=interpret)
-
-
 def _objective_compact(data, st, nat_mu, hyper_delta):
     """(objective, post_means, linked) of a compact parameter point
     (st supplies only error_scaling — `_minimal_state` builds a
@@ -729,23 +594,11 @@ def _objective_compact(data, st, nat_mu, hyper_delta):
     materialized path (reference variational_inference.py:452-490,
     632-641, 868-885), identical up to float reassociation.
     """
-    use_pk, interp = blocks_mod.pallas_flags()
-    # the fused Mosaic prologue streams the shared [P, I] natural mean
-    # or the per-component [K, P, I] scale_se state (compact_obj kdim)
-    if use_pk and (interp or _prologue_supported(data, nat_mu)):
-        post_means, post_vars, beta_kl = _prologue_fused(
-            data, st.error_scaling, nat_mu, hyper_delta, interp)
-        scaled_mu, linked_ests = _ld_scaled_dot(data, post_means)
-        ll = kernels.fast_likelihood(
-            post_means, post_vars, scaled_mu, data.scaled_ld_diags,
-            linked_ests, data.adj_marginal_effects, data.chi_stat,
-            data.ld_ranks, st.error_scaling)
-        return ll - beta_kl, post_means, linked_ests
-
     if nat_mu.ndim == 2 and _use_chunked(data, nat_mu):
         return _objective_chunked(data, st, nat_mu, hyper_delta)
-    dterm = _diag_term(data, st.error_scaling)
-    ex = sigma_mod.compact_exprs(data.mixture_prec, dterm, nat_mu)
+    with jax.named_scope('prologue'):
+        dterm = _diag_term(data, st.error_scaling)
+        ex = sigma_mod.compact_exprs(data.mixture_prec, dterm, nat_mu)
     return _objective_from_exprs(data, st.error_scaling, ex, hyper_delta)
 
 
@@ -757,17 +610,20 @@ def _objective_from_exprs(data, error_scaling, ex, hyper_delta):
     vi_delta comes from the compact closed forms: the prior-only natural
     params plus the per-component quadratic/log-det corrections, fed
     through the stabilized categorical inversion (the same jnp kernels
-    the materialized path uses; both fuse under jit)."""
-    natvd = kernels.fast_vi_delta_grad(hyper_delta, data.log_det,
-                                       data.annotations)     # [K-1, I]
-    addenda = ex.log_det_sigma + ex.quad                     # [K, I]
-    li = 0.5 * (addenda[:-1] - addenda[-1:]) + natvd         # [K-1, I]
-    vi_delta = kernels.invert_nat_cat_2D(li)                 # [K, I]
+    the materialized path uses; both fuse under jit). The component
+    evaluation is traced under the 'prologue' scope."""
+    with jax.named_scope('prologue'):
+        natvd = kernels.fast_vi_delta_grad(hyper_delta, data.log_det,
+                                           data.annotations)  # [K-1, I]
+        addenda = ex.log_det_sigma + ex.quad                  # [K, I]
+        li = 0.5 * (addenda[:-1] - addenda[-1:]) + natvd      # [K-1, I]
+        vi_delta = kernels.invert_nat_cat_2D(li)              # [K, I]
 
-    # posterior moments (fast_posterior_mean / fast_pmv)
-    post_means = jnp.einsum('kpi,ki->pi', ex.mu, vi_delta)
-    second = jnp.einsum('kpi,ki->pi', ex.diag + ex.mu ** 2, vi_delta)
-    post_vars = second - post_means ** 2
+        # posterior moments (fast_posterior_mean / fast_pmv)
+        post_means = jnp.einsum('kpi,ki->pi', ex.mu, vi_delta)
+        second = jnp.einsum('kpi,ki->pi', ex.diag + ex.mu ** 2,
+                            vi_delta)
+        post_vars = second - post_means ** 2
 
     # likelihood (one LD pass)
     scaled_mu, linked_ests = _ld_scaled_dot(data, post_means)
@@ -807,9 +663,7 @@ def _objective_from_exprs(data, error_scaling, ex, hyper_delta):
 # ---------------------------------------------------------------------------
 
 # compact fits whose [K, I] staging buffers would exceed this use the
-# K-chunked evaluation (only reachable when the fused Mosaic prologue
-# is unavailable — it bails above K ~ 900 where the whole component
-# axis no longer fits VMEM; see ops/pallas/compact_obj._pick_tile).
+# K-chunked evaluation; smaller grids stage whole [K, I] CompactExprs.
 # VILMA_XLA_KI_CHUNK_BYTES overrides (0 forces chunking everywhere).
 _XLA_KI_CHUNK_BYTES = int(_os.environ.get('VILMA_XLA_KI_CHUNK_BYTES',
                                           1 << 30))
@@ -944,8 +798,9 @@ def _chunked_moments(data, st, nat_u, hyper_delta, hist_c=None):
 def _objective_chunked(data, st, nat_u, hyper_delta, hist_c=None):
     """(objective, post_means, linked) via `_chunked_moments` — the
     K-chunked twin of `_objective_from_exprs`."""
-    post_means, post_vars, delta_comp, inner, cov_comp = \
-        _chunked_moments(data, st, nat_u, hyper_delta, hist_c=hist_c)
+    with jax.named_scope('prologue'):
+        post_means, post_vars, delta_comp, inner, cov_comp = \
+            _chunked_moments(data, st, nat_u, hyper_delta, hist_c=hist_c)
     scaled_mu, linked_ests = _ld_scaled_dot(data, post_means)
     ll = kernels.fast_likelihood(post_means, post_vars, scaled_mu,
                                  data.scaled_ld_diags, linked_ests,
@@ -1022,20 +877,11 @@ def _objective_epoch(data, st, nat_u, hist_c, hyper_delta):
     point. The trial parameters of a beta step are (nat_u, hist_c) —
     one [P, I] vector and B scalars; st supplies error_scaling and the
     epoch buffers."""
-    use_pk, interp = blocks_mod.pallas_flags()
-    if use_pk and (interp or _epoch_prologue_supported(data, st, nat_u)):
-        post_means, post_vars, beta_kl = _epoch_prologue_fused(
-            data, st, nat_u, hist_c, hyper_delta, interp)
-        scaled_mu, linked_ests = _ld_scaled_dot(data, post_means)
-        ll = kernels.fast_likelihood(
-            post_means, post_vars, scaled_mu, data.scaled_ld_diags,
-            linked_ests, data.adj_marginal_effects, data.chi_stat,
-            data.ld_ranks, st.error_scaling)
-        return ll - beta_kl, post_means, linked_ests
     if _use_chunked(data, nat_u):
         return _objective_chunked(data, st, nat_u, hyper_delta,
                                   hist_c=hist_c)
-    ex = _epoch_exprs(data, st, nat_u, hist_c)
+    with jax.named_scope('prologue'):
+        ex = _epoch_exprs(data, st, nat_u, hist_c)
     return _objective_from_exprs(data, st.error_scaling, ex, hyper_delta)
 
 
@@ -1111,36 +957,11 @@ def _beta_loop_compact(data, st, conv_tol, line_search_rate):
     return st, delta, obj, pm, lk
 
 
-def _delta_sums_fused(data, error_scaling, nat_mu, hyper_delta,
-                      interpret):
-    """sum_annotations of the derived vi_delta via the fused Mosaic
-    kernel (no [K, *, I] materialization; see compact_obj.delta_sums)."""
-    from jax.sharding import PartitionSpec as PS
-    from vilma_tpu.ops.pallas import compact_obj
-    args, sharded = _fused_operands(data, error_scaling, nat_mu,
-                                    hyper_delta)
-    A = data.num_annotations
-    if sharded:
-        def local(co, sc, ann, dt, nm):
-            s = compact_obj.delta_sums(co, sc, ann, dt, nm,
-                                       num_annotations=A,
-                                       interpret=interpret)
-            return jax.lax.psum(s, 'snp')
-
-        return _fused_shard_map(local, PS(), nat_ndim=nat_mu.ndim)(*args)
-    return compact_obj.delta_sums(*args, num_annotations=A,
-                                  interpret=interpret)
-
-
 def _update_hyper_delta_compact(data, st, orig_obj):
     """Compact twin of `_update_hyper_delta`: vi_delta is derived, the
     new nat_grad_vi_delta is implied by the new hyper_delta."""
     eps = epsilon(st.nat_mu.dtype)
-    use_pk, interp = blocks_mod.pallas_flags()
-    if use_pk and (interp or _prologue_supported(data, st.nat_mu)):
-        new_hd = _delta_sums_fused(data, st.error_scaling, st.nat_mu,
-                                   st.hyper_delta, interp)
-    elif st.nat_mu.ndim == 2 and _use_chunked(data, st.nat_mu):
+    if st.nat_mu.ndim == 2 and _use_chunked(data, st.nat_mu):
         new_hd = _delta_sums_chunked(data, st, st.nat_mu,
                                      st.hyper_delta)
     else:
@@ -1172,23 +993,14 @@ def _update_error_scaling_compact(data, st, orig_obj, post_means, linked):
     remain exactly the reference trajectory's
     (tests/test_reference_parity.py pins this end to end)."""
     dterm_old = _diag_term(data, st.error_scaling)
-    use_pk, interp = blocks_mod.pallas_flags()
-    if use_pk and (interp or _prologue_supported(data, st.nat_mu)):
-        # one fused pass over the state instead of the XLA [K, *, I]
-        # derivation (post_vars of the CURRENT params, pre-EM)
-        _, post_vars, _ = _prologue_fused(
-            data, st.error_scaling, st.nat_mu, st.hyper_delta, interp)
-        ex = None
-    else:
-        ex = sigma_mod.compact_exprs(data.mixture_prec, dterm_old,
-                                     st.nat_mu)
-        natvd = kernels.fast_vi_delta_grad(st.hyper_delta, data.log_det,
-                                           data.annotations)
-        addenda = ex.log_det_sigma + ex.quad
-        li = 0.5 * (addenda[:-1] - addenda[-1:]) + natvd
-        vi_delta = kernels.invert_nat_cat_2D(li)
-        second = jnp.einsum('kpi,ki->pi', ex.diag + ex.mu ** 2, vi_delta)
-        post_vars = second - post_means ** 2
+    ex = sigma_mod.compact_exprs(data.mixture_prec, dterm_old, st.nat_mu)
+    natvd = kernels.fast_vi_delta_grad(st.hyper_delta, data.log_det,
+                                       data.annotations)
+    addenda = ex.log_det_sigma + ex.quad
+    li = 0.5 * (addenda[:-1] - addenda[-1:]) + natvd
+    vi_delta = kernels.invert_nat_cat_2D(li)
+    second = jnp.einsum('kpi,ki->pi', ex.diag + ex.mu ** 2, vi_delta)
+    post_vars = second - post_means ** 2
 
     scaled_mu = post_means / data.std_errs
     quad = jnp.einsum('pi,pi->p', scaled_mu, linked)
@@ -1201,12 +1013,9 @@ def _update_error_scaling_compact(data, st, orig_obj, post_means, linked):
 
     # re-base: vi_mu (= sigma_old @ nat) is unchanged by the EM;
     # express it in the NEW natural coordinates
-    vi_mu = (ex.mu if ex is not None
-             else sigma_mod.apply_sigma(data.mixture_prec, dterm_old,
-                                        _nat_k(data, st.nat_mu)))
     dterm_new = _diag_term(data, new_scaling)
     nat_new = sigma_mod.apply_precision(data.mixture_prec, dterm_new,
-                                        vi_mu)
+                                        ex.mu)
     st = dataclasses.replace(st, error_scaling=new_scaling,
                              nat_mu=nat_new)
     new_obj, pm, lk = _objective_compact(data, st, nat_new,
@@ -1304,12 +1113,8 @@ def _beta_loop_epoch(data, st, conv_tol, line_search_rate):
     return st, delta, obj, pm, lk
 
 
-def _delta_sums_epoch(data, st, hyper_delta, use_fused, interp):
+def _delta_sums_epoch(data, st, hyper_delta):
     """sum_annotations of the derived vi_delta for the epoch state."""
-    if use_fused:
-        return _epoch_delta_sums_fused(data, st, st.nat_mu,
-                                       st.nat_hist_c, hyper_delta,
-                                       interp)
     if _use_chunked(data, st.nat_mu):
         return _delta_sums_chunked(data, st, st.nat_mu, hyper_delta,
                                    hist_c=st.nat_hist_c)
@@ -1326,10 +1131,7 @@ def _delta_sums_epoch(data, st, hyper_delta, use_fused, interp):
 def _update_hyper_delta_epoch(data, st, orig_obj):
     """Epoch twin of `_update_hyper_delta_compact`."""
     eps = epsilon(st.nat_mu.dtype)
-    use_pk, interp = blocks_mod.pallas_flags()
-    fused = use_pk and (interp
-                        or _epoch_prologue_supported(data, st, st.nat_mu))
-    new_hd = _delta_sums_epoch(data, st, st.hyper_delta, fused, interp)
+    new_hd = _delta_sums_epoch(data, st, st.hyper_delta)
     new_hd = jnp.maximum(
         new_hd / (data.annotation_counts[:, None] + eps), eps)
     new_hd = new_hd / new_hd.sum(axis=1, keepdims=True)
@@ -1351,12 +1153,7 @@ def _update_error_scaling_epoch(data, st, orig_obj, post_means, linked):
     grows the buffer before it fills, so freezing only happens at the
     hard cap)."""
     # post_vars of the CURRENT params (pre-EM)
-    use_pk, interp = blocks_mod.pallas_flags()
-    if use_pk and (interp
-                   or _epoch_prologue_supported(data, st, st.nat_mu)):
-        _, post_vars, _ = _epoch_prologue_fused(
-            data, st, st.nat_mu, st.nat_hist_c, st.hyper_delta, interp)
-    elif _use_chunked(data, st.nat_mu):
+    if _use_chunked(data, st.nat_mu):
         _, post_vars, _, _, _ = _chunked_moments(
             data, st, st.nat_mu, st.hyper_delta, hist_c=st.nat_hist_c)
     else:
@@ -1897,8 +1694,7 @@ def _conv_stats(new_pm, old_pm, ckp_pm, num_err, elbo, red, error_scaling):
     The reference fetches the full posterior-mean matrix to the host each
     iteration to run np.allclose + logging (variational_inference.py:
     374-380, 292-331). At genome scale that is a [P,I] device->host
-    transfer (~16 MB at 1M SNPs) per iteration — on tunneled/remote TPUs
-    it costs more than the iteration itself. All the optimize loop
+    transfer (~16 MB at 1M SNPs) per iteration. All the optimize loop
     actually consumes are these scalars, so reduce on device and fetch
     one tiny vector (a single host round-trip per iteration)."""
     eps = epsilon(new_pm.dtype)

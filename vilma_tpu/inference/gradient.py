@@ -3,8 +3,7 @@
 The coordinate-ascent engine (inference.engine) is the production path; this
 module maximizes the *same* ELBO with optax over unconstrained
 parameterizations, as an independent check that the natural-gradient
-updates converge to a true ELBO optimum (BASELINE.json north star:
-"also add gradient-based ELBO optimization ... for validation").
+updates converge to a true ELBO optimum.
 
 Parameterization:
     vi_mu           unconstrained [K, P, I]

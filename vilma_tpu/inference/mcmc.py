@@ -1,7 +1,7 @@
 """NUTS and annealed-SMC posterior sampling on small LD blocks.
 
-Validation tooling (BASELINE.json north star: "NUTS/SMC posterior checks
-on small blocks against VI output"): draws exact-model posterior samples
+Validation tooling (NUTS/SMC posterior checks on small blocks against
+VI output): draws exact-model posterior samples
 of the true effects beta for one dense LD block under the same RSS
 likelihood + mixture-of-Gaussians prior the VI engine optimizes, so the
 variational posterior can be checked against asymptotically exact

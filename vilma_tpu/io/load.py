@@ -1,43 +1,72 @@
 """Loading and matching of GWAS summary stats, annotations, and LD.
 
-Host-side ETL: pandas-based parsing with the exact column rules, allele
-flip/mismatch detection, and missing-data semantics of the reference
-(reference load.py:21-354), feeding the packed HBM block tensors of
-vilma_tpu.ops.blocks instead of Python block-object lists.
+Host-side ETL: parsing with the exact column rules, allele flip/mismatch
+detection, and missing-data semantics of the reference (reference
+load.py:21-354), feeding the packed block tensors of vilma_tpu.ops.blocks
+instead of Python block-object lists. Tables are read with the standard
+library and numpy (io/table.py).
 """
 import logging
 from pathlib import Path
 
 import numpy as np
-import pandas as pd
 
+from vilma_tpu.io import table
 from vilma_tpu.ops import blocks as blocks_mod
 from vilma_tpu.ops import lowrank
 
-# pandas >= 2 deprecates delim_whitespace; this is the equivalent.
-_WS = {'sep': r'\s+'}
+#: the columns of a loaded variant list, in output order
+VARIANT_COLUMNS = ('ID', 'A1', 'A2')
+
+
+def _derive_a2(t):
+    """A2 = REF unless A1 == REF, in which case A2 = ALT."""
+    return np.where(t['A1'] == t['REF'], t['ALT'], t['REF'])
+
+
+def _id_positions(ids):
+    """{ID: first position} over an ID column."""
+    pos = {}
+    for i, v in enumerate(ids):
+        pos.setdefault(v, i)
+    return pos
 
 
 def load_variant_list(variant_filename):
     """Read the analysis variant list (reference load.py:21-39).
 
     Requires ID and A1 columns; A2 may be given directly or derived from
-    REF/ALT (A2 = REF unless A1 == REF, in which case A2 = ALT).
+    REF/ALT (A2 = REF unless A1 == REF, in which case A2 = ALT). Rows
+    repeated in full are kept once.
     """
-    variants = pd.read_csv(variant_filename, header=0,
-                           **_WS).drop_duplicates(ignore_index=True)
-    if 'ID' not in variants.columns:
+    variants = table.read_table(variant_filename)
+    if 'ID' not in variants:
         raise ValueError('The variant list has no ID column.')
-    if 'A1' not in variants.columns:
+    if 'A1' not in variants:
         raise ValueError('The variant list has no A1 column.')
-    if 'A2' not in variants.columns:
-        if 'REF' not in variants.columns or 'ALT' not in variants.columns:
+    if 'A2' not in variants:
+        if 'REF' not in variants or 'ALT' not in variants:
             raise ValueError('The variant list needs an A2 column (or '
                              'REF and ALT columns to derive one).')
-        variants['A2'] = variants['REF'].copy()
-        flip = variants['A1'] == variants['REF']
-        variants.loc[flip, 'A2'] = variants.loc[flip, 'ALT'].copy()
-    return variants[['ID', 'A1', 'A2']]
+    seen, first = set(), []
+    for i, row in enumerate(zip(*(v for _, v in variants.items()))):
+        if row not in seen:
+            seen.add(row)
+            first.append(i)
+    variants = variants.take(np.asarray(first, dtype=np.int64))
+    if 'A2' not in variants:
+        variants['A2'] = _derive_a2(variants)
+    return table.Table({c: variants[c] for c in VARIANT_COLUMNS})
+
+
+def _categories(values):
+    """Sorted distinct values (pandas' get_dummies order); values that do
+    not sort together keep their order of first appearance."""
+    distinct = list(dict.fromkeys(values.tolist()))
+    try:
+        return sorted(distinct)
+    except TypeError:
+        return distinct
 
 
 def load_annotations(annotations_filename, variants):
@@ -47,27 +76,31 @@ def load_annotations(annotations_filename, variants):
     denylist holds the indices of unannotated variants (assigned annotation
     0 in the one-hot matrix but excluded from LD).
     """
+    n = variants.shape[0]
     if not annotations_filename:
-        return np.ones((variants.shape[0], 1)), []
+        return np.ones((n, 1)), []
 
-    dframe = pd.read_csv(annotations_filename, header=0, **_WS)
-    if 'ID' not in dframe.columns:
+    annots = table.read_table(annotations_filename)
+    if 'ID' not in annots:
         raise ValueError('The annotation file has no ID column.')
-    if 'ANNOTATION' not in dframe.columns:
+    if 'ANNOTATION' not in annots:
         raise ValueError('The annotation file has no ANNOTATION column.')
 
-    dframe = pd.merge(variants, dframe, on='ID', how='left')
-    dframe = pd.DataFrame(dframe['ANNOTATION'])
-    num_missing = int(dframe['ANNOTATION'].isna().sum())
-    if num_missing > 0:
+    pos = _id_positions(annots['ID'])
+    labels = annots['ANNOTATION']
+    match = [pos.get(v, -1) for v in np.asarray(variants['ID'])]
+    missing = [i for i, m in enumerate(match) if m < 0
+               or (isinstance(labels[m], float) and np.isnan(labels[m]))]
+    if missing:
         logging.warning('No annotation found for %d of %d variants; '
                         'assigning them the first annotation category.',
-                        num_missing, dframe.shape[0])
-    denylist = np.where(dframe['ANNOTATION'].isna())[0].tolist()
-    dframe.loc[dframe['ANNOTATION'].isna(), 'ANNOTATION'] = 0
-    one_hot = pd.get_dummies(dframe['ANNOTATION'],
-                             dummy_na=False).to_numpy()
-    return one_hot.astype(np.float64), denylist
+                        len(missing), n)
+    values = np.array([labels[m] if m >= 0 else 0 for m in match],
+                      dtype=labels.dtype)
+    values[missing] = 0
+    cats = _categories(values)
+    one_hot = np.stack([values == c for c in cats], axis=1)
+    return one_hot.astype(np.float64), missing
 
 
 def load_sumstats(sumstats_filename, variants):
@@ -76,57 +109,65 @@ def load_sumstats(sumstats_filename, variants):
 
     Handles OR -> log(OR) conversion, allele flip (BETA sign change) and
     mismatch detection; missing or mismatched rows get BETA=0, SE=1 and are
-    reported in the returned missing list.
+    reported in the returned missing list. Returns (Table with the
+    variants' ID/A1/A2 plus BETA and SE, missing list).
     """
-    header = pd.read_csv(sumstats_filename, nrows=1, header=0, **_WS)
-    if 'ID' not in header.columns:
+    columns = table.header(sumstats_filename)
+    if 'ID' not in columns:
         raise ValueError('The summary statistics file has no ID column.')
-    if 'A1' not in header.columns:
+    if 'A1' not in columns:
         raise ValueError('The summary statistics file has no A1 column.')
     a2_cols = ['A2']
-    if 'A2' not in header.columns:
+    if 'A2' not in columns:
         a2_cols = ['REF', 'ALT']
-        if 'REF' not in header.columns or 'ALT' not in header.columns:
+        if 'REF' not in columns or 'ALT' not in columns:
             raise ValueError('The summary statistics file needs an A2 '
                              'column (or REF and ALT columns to derive '
                              'one).')
-    if 'SE' not in header.columns:
+    if 'SE' not in columns:
         raise ValueError('The summary statistics file has no SE column.')
     effect_col = 'BETA'
-    if 'BETA' not in header.columns:
+    if 'BETA' not in columns:
         effect_col = 'OR'
-        if 'OR' not in header.columns:
+        if 'OR' not in columns:
             raise ValueError('The summary statistics file needs an '
                              'effect-size column: either BETA or OR.')
 
-    sumstats = pd.read_csv(
-        sumstats_filename, header=0,
-        usecols=['ID', 'A1', 'SE', effect_col] + a2_cols, **_WS)
-    sumstats = sumstats[sumstats.ID.isin(variants.ID)].reset_index(drop=True)
+    stats = table.read_table(
+        sumstats_filename,
+        usecols=['ID', 'A1', 'SE', effect_col] + a2_cols)
+    a2 = stats['A2'] if 'A2' in stats else _derive_a2(stats)
+    effect = stats[effect_col].astype(np.float64)
+    beta = effect if effect_col == 'BETA' else np.log(effect)
+    se = stats['SE'].astype(np.float64)
 
-    if 'A2' not in sumstats.columns:
-        sumstats['A2'] = sumstats['REF'].copy()
-        flip = sumstats['A1'] == sumstats['REF']
-        sumstats.loc[flip, 'A2'] = sumstats.loc[flip, 'ALT'].copy()
-    if 'BETA' not in sumstats.columns:
-        sumstats['BETA'] = np.log(sumstats.OR)
-
-    sumstats = pd.merge(variants, sumstats, on='ID', how='left')
-    stay_allele = ((sumstats.A1_x == sumstats.A1_y)
-                   & (sumstats.A2_x == sumstats.A2_y))
-    flip_allele = ((sumstats.A1_x == sumstats.A2_y)
-                   & (sumstats.A1_y == sumstats.A2_x))
-    missing = (sumstats.BETA.isna()
-               | sumstats.SE.isna()
+    # left join on ID: each variant takes its first sumstats row
+    pos = _id_positions(stats['ID'])
+    match = np.array([pos.get(v, -1) for v in np.asarray(variants['ID'])],
+                     dtype=np.int64)
+    found = match >= 0
+    m = np.where(found, match, 0)
+    v_a1 = np.asarray(variants['A1'])
+    v_a2 = np.asarray(variants['A2'])
+    s_a1 = stats['A1'][m]
+    s_a2 = a2[m]
+    stay_allele = found & (v_a1 == s_a1) & (v_a2 == s_a2)
+    flip_allele = found & (v_a1 == s_a2) & (s_a1 == v_a2)
+    beta = np.where(found, beta[m], np.nan)
+    se = np.where(found, se[m], np.nan)
+    missing = (np.isnan(beta) | np.isnan(se)
                | ((~stay_allele) & (~flip_allele)))
     logging.warning('No usable summary statistics for %d of %d variants.',
-                    int(missing.sum()), sumstats.shape[0])
+                    int(missing.sum()), missing.size)
     logging.warning('Allele order flipped for %d variants.',
                     int(flip_allele.sum()))
-    sumstats.loc[missing, 'BETA'] = 0.
-    sumstats.loc[missing, 'SE'] = 1.
-    sumstats.loc[flip_allele, 'BETA'] = -sumstats.loc[flip_allele, 'BETA']
-    return sumstats, np.where(missing)[0].tolist()
+    beta[missing] = 0.
+    se[missing] = 1.
+    beta[flip_allele] = -beta[flip_allele]
+    out = table.Table({c: np.asarray(variants[c]) for c in VARIANT_COLUMNS})
+    out['BETA'] = beta
+    out['SE'] = se
+    return out, np.where(missing)[0].tolist()
 
 
 def schema_iterator(schema_path):
@@ -207,20 +248,23 @@ def matched_schema_entries(schema_path, variants, denylist):
     loaders agree on the global block structure without every host
     touching every matrix (matching reference load.py:269-329 semantics).
     """
-    var_reidx = variants.set_index('ID')
-    var_reidx['old_idx'] = np.arange(var_reidx.shape[0])
+    ids = np.asarray(variants['ID'])
+    id_pos = _id_positions(ids)
+    all_a1 = np.asarray(variants['A1'])
+    all_a2 = np.asarray(variants['A2'])
     for snp_path, ld_path in schema_iterator(schema_path):
-        snp_metadata = pd.read_csv(snp_path, header=None,
-                                   names=['ID', 'CHROM', 'BP',
-                                          'CM', 'A1', 'A2'], **_WS)
+        snp_metadata = table.read_table(
+            snp_path, names=['ID', 'CHROM', 'BP', 'CM', 'A1', 'A2'],
+            str_cols=('ID', 'CHROM', 'A1', 'A2'))
         logging.info('Reading LD block with %d variants.',
                      snp_metadata.shape[0])
 
-        variant_indices = np.array(snp_metadata.ID.isin(variants.ID))
+        variant_indices = np.array([v in id_pos for v in snp_metadata.ID],
+                                   dtype=bool)
         if np.sum(variant_indices) == 0:
             continue
         kept_ids = snp_metadata.ID[variant_indices]
-        idx = var_reidx.loc[kept_ids].old_idx.to_numpy().flatten()
+        idx = np.array([id_pos[v] for v in kept_ids], dtype=np.int64)
         keep = np.isin(idx, denylist, invert=True)
         to_change = np.where(variant_indices)[0][~keep]
         variant_indices[to_change] = False
@@ -230,10 +274,10 @@ def matched_schema_entries(schema_path, variants, denylist):
         if len(idx) == 0:
             continue
         signs = np.ones(len(idx))
-        my_a1 = variants['A1'].iloc[idx].to_numpy()
-        my_a2 = variants['A2'].iloc[idx].to_numpy()
-        ld_a1 = snp_metadata['A1'].iloc[variant_indices].to_numpy()
-        ld_a2 = snp_metadata['A2'].iloc[variant_indices].to_numpy()
+        my_a1 = all_a1[idx]
+        my_a2 = all_a2[idx]
+        ld_a1 = snp_metadata.A1[variant_indices]
+        ld_a2 = snp_metadata.A2[variant_indices]
         stay = (my_a1 == ld_a1) & (my_a2 == ld_a2)
         flip = (my_a1 == ld_a2) & (my_a2 == ld_a1)
         mismatch = (~flip) & (~stay)

@@ -2,7 +2,7 @@
 
 Replaces the reference's libplinkio dependency
 (reference make_ld_schema.py:6,101,173-175): .bim/.fam metadata is parsed
-with pandas, and the 2-bit SNP-major genotype matrix is decoded by the
+as plain text, and the 2-bit SNP-major genotype matrix is decoded by the
 native C++ extension (csrc/plinkbed.cpp) with a pure-numpy fallback.
 
 Genotype convention matches libplinkio: 0 = hom first allele (bim allele1),
@@ -15,7 +15,6 @@ import subprocess
 from dataclasses import dataclass, field
 
 import numpy as np
-import pandas as pd
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))), 'csrc')
@@ -94,19 +93,16 @@ class PlinkFile:
 def open_plink(basename):
     """Open basename{.bed,.bim,.fam}, decoding all genotypes."""
     basename = str(basename)
-    bim = pd.read_csv(basename + '.bim', sep=r'\s+', header=None,
-                      names=['chrom', 'name', 'cm', 'bp', 'a1', 'a2'],
-                      dtype={'chrom': str})
-    fam = pd.read_csv(basename + '.fam', sep=r'\s+', header=None)
-    num_samples = fam.shape[0]
-    num_snps = bim.shape[0]
+    with open(basename + '.bim') as fh:
+        bim = [line.split() for line in fh if line.split()]
+    with open(basename + '.fam') as fh:
+        num_samples = sum(1 for line in fh if line.split())
+    num_snps = len(bim)
 
     genotypes = decode_bed(basename + '.bed', num_samples, num_snps)
-    loci = [Locus(chromosome=row.chrom, name=row.name,
-                  position=float(row.cm),
-                  bp_position=int(row.bp), allele1=str(row.a1),
-                  allele2=str(row.a2))
-            for row in bim.itertuples(index=False)]
+    loci = [Locus(chromosome=chrom, name=name, position=float(cm),
+                  bp_position=int(bp), allele1=a1, allele2=a2)
+            for chrom, name, cm, bp, a1, a2 in bim]
     return PlinkFile(basename=basename, loci=loci,
                      num_samples=num_samples, _genotypes=genotypes)
 

@@ -8,7 +8,7 @@ In the reference, the per-SNP/per-component variational covariance
 is materialized as a [K,P,P,I] array (reference
 variational_inference.py:712-733) — tens of GB at genome scale. It is,
 however, a deterministic function of K PxP precision matrices and a [P,I]
-diagonal, so on TPU we never materialize it: every contraction against
+diagonal, so we never materialize it: every contraction against
 vi_sigma is expressed with closed-form PxP inverses (P = #populations is
 1-3 in practice) fused into the consuming kernel, keeping HBM traffic at
 O(K*P*I) instead of O(K*P^2*I). For P >= 4 a chunked batched-solve path
@@ -33,8 +33,8 @@ class SigmaSummaries:
     sigma_summary: jnp.ndarray    # [K, I]  logdet prior - logdet sigma + trace match
     diag: jnp.ndarray             # [K, P, I] diagonal of vi_sigma
     matches: jnp.ndarray          # [K, I]  trace(mixture_prec[k] @ sigma[k,i])
-    #   all [K, I] (K-major: the reference keeps these [I, K], but on TPU
-    #   a K<=32 minor axis pads to 128 lanes — see kernels.fast_posterior_mean)
+    #   all [K, I] (K-major: the reference keeps these [I, K]; see
+    #   kernels.fast_posterior_mean)
 
 
 jax.tree_util.register_dataclass(

@@ -1,9 +1,9 @@
 """HBM-resident packed block-diagonal LD tensors.
 
 The reference stores LD as a Python list of per-block low-rank objects and
-loops over them on the host (reference matrix_structures.py:237-447). On TPU
-that design serializes into thousands of tiny kernels; instead we pack blocks
-into a small number of *buckets* of padded dense tensors:
+loops over them on the host (reference matrix_structures.py:237-447). On an
+accelerator that design serializes into thousands of tiny kernels; instead
+we pack blocks into a small number of *buckets* of padded dense tensors:
 
     u: [B, Pmax, Rmax]   eigenvectors (rows past a block's size are zero)
     s: [B, Rmax]         eigenvalues  (entries past a block's rank are zero)
@@ -13,8 +13,8 @@ into a small number of *buckets* of padded dense tensors:
                          sentinel one-past-the-end slot)
 
 so that every block operation is a single batched einsum per bucket —
-large, static-shaped contractions XLA tiles onto the MXU — and the
-permutation/missing semantics of the reference (matrix_structures.py:246-331)
+large, static-shaped contractions — and the permutation/missing
+semantics of the reference (matrix_structures.py:246-331)
 are implemented with one gather + one scatter against genome-ordered vectors.
 
 All public ops are pure functions of a PackedLD pytree and are safe to use
@@ -34,8 +34,7 @@ from vilma_tpu.ops import lowrank
 
 
 # Block sizes are padded up to one of these tiers (then buckets group blocks
-# sharing a tier). 8 = f32 sublane size; larger tiers are powers of two so at
-# most ~2x padding waste.
+# sharing a tier). Tiers are powers of two, so at most ~2x padding waste.
 _SIZE_TIERS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384)
 
 
@@ -109,8 +108,8 @@ class PackedLD:
     missing: tuple            # genome indices with no LD block (sorted ints)
     row_aligned: bool         # True when every block is a contiguous
     #   128-aligned genome range with exclusive 128-rows: enables the
-    #   row-wise gather/scatter fast path in `dot` (TPU element gathers
-    #   run at ~70M elem/s; whole-128-lane-row transfers are ~4x faster)
+    #   row-wise gather/scatter path in `dot` (whole 128-element rows
+    #   instead of element gathers)
     shard_count: int = 1      # >1 when the layout is shard-local: the
     #   genome axis splits into shard_count equal spans of n/shard_count
     #   slots, no block straddles a span boundary, bucket rows are
@@ -446,41 +445,11 @@ def _scatter_accumulate(parts, n, dtype):
     return out[:n]
 
 
-#: When True, buckets that satisfy pallas.block_matvec.supported() use the
-#: fused single-pass Pallas kernel for `dot` (TPU f32 path); others and all
-#: other backends use the XLA batched-einsum path.
-_USE_PALLAS = False
-
-#: Run the Pallas kernel in interpret mode (pure-JAX emulation) — lets
-#: CPU tests exercise the full dot/dot_multi integration path (gather,
-#: kernel, row-aligned scatter) without TPU hardware.
-_PALLAS_INTERPRET = False
-
-
-def enable_pallas(on=True, interpret=False):
-    global _USE_PALLAS, _PALLAS_INTERPRET
-    _USE_PALLAS = bool(on)
-    _PALLAS_INTERPRET = bool(interpret)
-
-
-def pallas_flags():
-    """(enabled, interpret) — one switch governs every fused Mosaic
-    kernel (the block matvec here and the engine's compact-objective
-    prologue, ops/pallas/compact_obj.py)."""
-    return _USE_PALLAS, _PALLAS_INTERPRET
-
-
 def _bucket_dot(bk, xb):
-    if _USE_PALLAS:
-        from vilma_tpu.ops.pallas import block_matvec as pk
-        if _PALLAS_INTERPRET or pk.supported(bk.pmax, bk.rmax,
-                                             bk.u.dtype):
-            return pk.bucket_matvec(bk.u, bk.s, bk.d, xb,
-                                    interpret=_PALLAS_INTERPRET)
     if bk.u.dtype == jnp.bfloat16:
-        # feed the MXU bf16 operands with f32 accumulation directly: a
-        # plain einsum would type-promote u to f32 first, materializing a
-        # full-size converted copy and forfeiting the traffic saving
+        # bf16 operands with f32 accumulation: a plain einsum would
+        # type-promote u to f32 first, materializing a full-size
+        # converted copy and forfeiting the traffic saving
         t = jnp.einsum('bpr,bp->br', bk.u, xb.astype(jnp.bfloat16),
                        preferred_element_type=jnp.float32) * bk.s
         return (jnp.einsum('bpr,br->bp', bk.u, t.astype(jnp.bfloat16),
@@ -493,18 +462,8 @@ def _bucket_dot(bk, xb):
 def _bucket_dot_multi(bk, xb):
     """Batched-RHS bucket matvec: xb [B, C, P] -> [B, C, P].
 
-    One U pass serves all C vectors (cohorts sharing an LD panel read
-    U once instead of C times — U dominates HBM traffic at genome
-    scale). C rides the SUBLANE axis ([B, C, P] tiles with P on the
-    128 lanes); putting C minor would lane-pad 2 -> 128 and explode the
-    intermediate buffers (see kernels.fast_posterior_mean on the
-    padding tax)."""
-    if _USE_PALLAS:
-        from vilma_tpu.ops.pallas import block_matvec as pk
-        if _PALLAS_INTERPRET or pk.supported(bk.pmax, bk.rmax,
-                                             bk.u.dtype):
-            return pk.bucket_matvec_multi(bk.u, bk.s, bk.d, xb,
-                                          interpret=_PALLAS_INTERPRET)
+    One pass of the batched products serves all C vectors (cohorts
+    sharing an LD panel), instead of C separate matvecs."""
     if bk.u.dtype == jnp.bfloat16:
         t = jnp.einsum('bpr,bcp->bcr', bk.u, xb.astype(jnp.bfloat16),
                        preferred_element_type=jnp.float32)
@@ -567,8 +526,9 @@ def dot_multi(ld, vectors):
 def _dot_rows(buckets, n, vector):
     """Row-wise gather/scatter matvec for 128-aligned contiguous blocks.
 
-    TPU elementwise gathers move ~70M elements/s; transferring whole
-    128-lane rows is ~4x faster. The vector is viewed as [rows, 128];
+    Moves whole 128-element rows instead of single elements. Whether
+    that beats the element gather on a GPU is not measured yet. The
+    vector is viewed as [rows, 128];
     each block reads/writes its exclusive row range (pad tails of the
     widest bucket may read into neighbours — harmless — while writes are
     routed to a trash row). Also the per-shard local body of
@@ -622,13 +582,8 @@ def _dot_sharded(ld, vector):
     def local(v, buckets):
         return _dot_rows(buckets, n_local, v)
 
-    # check_vma=False: pallas_call cannot declare output varying-mesh-axes
-    # (ShapeDtypeStruct.vma), which the default vma check requires — the
-    # body is per-device local math with no collectives, so nothing is
-    # lost (verified collective-free in test_shard_local_dot_has_no_collectives)
     return jax.shard_map(local, in_specs=(P('snp'), _bucket_specs(ld)),
-                         out_specs=P('snp'),
-                         check_vma=False)(vector, ld.buckets)
+                         out_specs=P('snp'))(vector, ld.buckets)
 
 
 def _dot_multi_sharded(ld, vectors):
@@ -641,8 +596,7 @@ def _dot_multi_sharded(ld, vectors):
 
     return jax.shard_map(local,
                          in_specs=(P(None, 'snp'), _bucket_specs(ld)),
-                         out_specs=P(None, 'snp'),
-                         check_vma=False)(vectors, ld.buckets)
+                         out_specs=P(None, 'snp'))(vectors, ld.buckets)
 
 
 def dot(ld, vector):
@@ -797,8 +751,8 @@ def _woodbury_mid(bk, inv_dp, ut_xd, dtype):
     are zero) so the solve is well-posed and yields zeros there.
 
     The [B, R, R] gram + LU temporaries dominate peak HBM at genome
-    scale (a 6M-SNP bucket of 5859 512-wide blocks needs 2 x 5.7 GB,
-    which alone overflows a 16 GB chip), so blocks are processed in
+    scale (a 6M-SNP bucket of 5859 512-wide blocks needs 2 x 5.7 GB),
+    so blocks are processed in
     fixed-size chunks under lax.map: per-block results are independent,
     making the chunked computation numerically identical while peak
     temp memory stays ~0.5 GB. One-time setup cost; not the hot path.

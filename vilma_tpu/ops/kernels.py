@@ -1,6 +1,6 @@
 """Core numerical kernels for the VI engine, as fused XLA ops.
 
-TPU-native equivalents of the reference's numba kernels
+JAX equivalents of the reference's numba kernels
 (reference numerics.py:11-290). Shapes follow the reference convention:
 K = mixture components, P = populations, I = SNPs, A = annotations.
 
@@ -57,10 +57,9 @@ def fast_posterior_mean(vi_mu, vi_delta):
     """Mixture-weighted mean (numerics.py:49-57, einsum('kpi,ik->pi')).
 
     vi_delta is stored K-major ([K, I], the transpose of the reference's
-    [I, K]) so that the SNP axis lands on TPU vector lanes: a [I, K<=32]
-    array tiles as T(8,128) with the K axis padded to 128 lanes — a 7x
-    HBM expansion at K=18 that both OOMs the 6M-SNP fit and taxes every
-    read. All [*, K] genome arrays follow the same convention."""
+    [I, K]) so that the long SNP axis is the minor (contiguous) one and
+    every K-reduction reads whole rows. All [*, K] genome arrays follow
+    the same convention."""
     return jnp.einsum('kpi,ki->pi', vi_mu, vi_delta)
 
 
@@ -87,9 +86,8 @@ def sum_annotations(deltas, annotations, num_annotations):
     deltas: [K, I]; returns [A, K]. Padding SNPs (annotation id ==
     num_annotations, used when the SNP axis is padded for even mesh
     sharding) accumulate into an extra segment that is dropped, so they
-    never perturb the real sums. Expressed as a one-hot contraction (an
-    MXU matmul with I on the lanes) rather than a lane-crossing
-    segment-sum over the K-major layout."""
+    never perturb the real sums. Expressed as a one-hot contraction
+    rather than a segment-sum over the K-major layout."""
     one_hot = (annotations[:, None]
                == jnp.arange(num_annotations + 1)[None, :])
     out = jnp.einsum('ki,ia->ak', deltas,
@@ -102,12 +100,10 @@ def fast_delta_kl(vi_delta, hyper_delta, annotations):
     (numerics.py:132-141). vi_delta: [K, I]. Padding SNPs (annotation
     id == num rows of hyper_delta) contribute zero.
 
-    The per-SNP hyper term avoids a [K,A]->[K,I] axis-1 gather: XLA's
-    TPU layout assignment propagates that gather's K-minor preference
-    through the whole fused vi_delta cluster, repadding K to 128 lanes
-    (7.1x HBM at K=18 — the 6M-SNP OOM). Instead project
-    logh.T @ vi_delta once ([A,I], an MXU matmul) and pick each SNP's
-    annotation row with A masked selects."""
+    The per-SNP hyper term avoids a [K,A]->[K,I] axis-1 gather, whose
+    K-minor layout preference can propagate through the whole fused
+    vi_delta cluster. Instead project logh.T @ vi_delta once ([A,I], a
+    matmul) and pick each SNP's annotation row with A masked selects."""
     A = hyper_delta.shape[0]
     entropy = jnp.sum(vi_delta * jnp.log(vi_delta), axis=0)     # [I]
     proj = jnp.log(hyper_delta) @ vi_delta                      # [A, I]

@@ -429,11 +429,14 @@ def initialize(coordinator_address=None, num_processes=None,
                process_id=None):
     """Initialize jax.distributed (idempotent).
 
-    With no arguments, jax auto-detects the cluster (TPU pods, SLURM,
-    OMPI, JAX_COORDINATOR_ADDRESS); explicit values support manual
-    launches (fit --distributed --coordinator host:port
-    --num-processes N --process-id i). Only the already-initialized case
-    is tolerated; real coordinator failures propagate — swallowing them
+    With no arguments, jax auto-detects the cluster (SLURM, OMPI,
+    JAX_COORDINATOR_ADDRESS); explicit values support manual launches
+    (fit --distributed --coordinator host:port --num-processes N
+    --process-id i). A JAX process reserves most of the memory of every
+    GPU it sees, so a manual launch of several processes on one GPU host
+    gives each its own card through its environment
+    (CUDA_VISIBLE_DEVICES=i). Only the already-initialized case is
+    tolerated; real coordinator failures propagate — swallowing them
     would silently degrade a multi-host launch into N independent
     full-problem fits that all believe they are rank 0."""
     kwargs = {}

@@ -1,7 +1,7 @@
 """Device-mesh sharding for the VI engine.
 
 The reference is single-process shared-memory (SURVEY.md section 2.4); the
-TPU-native parallel decomposition is designed from the math instead:
+parallel decomposition here is designed from the math instead:
 
   * `snp` axis: LD blocks are independent, so every [*, I] tensor (and the
     packed block buckets) shards along the SNP/block axis — the sequence-

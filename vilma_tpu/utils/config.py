@@ -1,10 +1,10 @@
 """Global numeric configuration for vilma_tpu.
 
 The reference implementation is float64 throughout with a hard clamp at
-EPSILON=1e-100 (reference numerics.py:8). float64 is available on CPU (and is
-what the parity tests use) but TPUs natively compute in f32/bf16, so every
-epsilon in this codebase is dtype-dependent: 1e-100 underflows to 0 in f32,
-which would defeat its purpose of avoiding log(0)/division-by-zero.
+EPSILON=1e-100 (reference numerics.py:8). float64 is what the parity tests
+use, but the fast path computes in f32/bf16, so every epsilon in this
+codebase is dtype-dependent: 1e-100 underflows to 0 in f32, which would
+defeat its purpose of avoiding log(0)/division-by-zero.
 """
 import numpy as np
 
